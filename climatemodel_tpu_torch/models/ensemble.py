@@ -1,0 +1,198 @@
+"""Ensemble (batched) grey column marches (port of the grey half of
+``climatemodel_tpu/models/ensemble.py``).
+
+The JAX package vmaps one member's march over a leading ensemble axis; here
+the march is batched by construction (``column.evolve_to_equilibrium``), so
+an ensemble is a batch of B members that run lock-step until every member
+has stopped, each with its own adaptive dt, RemoveInd mask and simulated
+time.
+
+Not yet ported (ROADMAP Queue 1): ``grey_latitude_ensemble`` and the
+real-gas ensembles.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..constants import sigma
+from . import column
+from .column import ColumnState, where_members
+from .grey import GreyForcing, GreyGas, grey_net_flux, grey_sw_fluxes, up_flux_toa
+
+
+def broadcast_state(state: ColumnState, n: int) -> ColumnState:
+    """Tile a batch-of-one state to ``n`` members."""
+    return state.map(lambda x: x.expand((n,) + x.shape[1:]).clone())
+
+
+def grey_ensemble_forcing(world: GreyGas, F_stellar_values) -> GreyForcing:
+    """Batched forcing varying the stellar constant across members."""
+    n = len(F_stellar_values)
+    base = world.forcing
+    tiled = base.map(lambda x: x.expand((n,) + x.shape[1:]).clone())
+    return tiled.replace(F_stellar=torch.as_tensor(
+        np.asarray(F_stellar_values, np.float64), device=base.F_stellar.device
+    ).to(base.F_stellar.dtype))
+
+
+def grey_ensemble(world: GreyGas, F_stellar_values):
+    """Batched (states, forcings, grids) from a template world."""
+    n = len(F_stellar_values)
+    states = broadcast_state(world.state, n)
+    # isothermal initial condition consistent with each member's forcing —
+    # from the RAW albedo exactly like the reference ctor (base.py:120 ->
+    # get_isothermal_temp(self.albedo, ...)), NOT albedo_mod (ensemble.py:465)
+    F = np.asarray(F_stellar_values, dtype=np.float64)[:, None]       # [n, 1]
+    T0 = (F * world.solar_latitude_factor[None]
+          * (1 - world.albedo[None]) / 4 / sigma) ** 0.25             # [n, ny]
+    T_init = np.broadcast_to(T0[:, None, :], (n,) + world.T.shape)
+    states = states.replace(T=world._tensor(T_init),
+                            net_flux=torch.zeros_like(states.net_flux))
+    forcings = grey_ensemble_forcing(world, F_stellar_values)
+    p_int = world._tensor(world.p_interface)
+    p_c = world._tensor(world.p[:, 0])
+    return states, forcings, p_int, p_c
+
+
+def grey_march_fns(forcings: GreyForcing, net_shape, fused_stats=True,
+                   net_flux_percentile=95):
+    """(net_flux_fn, net_stats_fn) of a grey ensemble march.  With
+    ``fused_stats`` the stats function computes the net flux AND the
+    per-member exit statistics in one pass (ops/two_stream.
+    grey_net_with_stats: the K3 kernel on CUDA for single columns), with
+    the T-independent sw fluxes and TOA boundary hoisted out of the loop;
+    without it the stats function is None and the march takes the flux (K1
+    on CUDA) and the statistics separately."""
+    from ..ops.two_stream import grey_net_with_stats
+
+    def net_fn(T):
+        return grey_net_flux(T, forcings)
+    if not fused_stats:
+        return net_fn, None
+    up_toa = up_flux_toa(forcings)
+    up_sw, down_sw = grey_sw_fluxes(forcings)
+    up_sw = torch.broadcast_to(up_sw, net_shape).contiguous()
+    down_sw = torch.broadcast_to(down_sw, net_shape).contiguous()
+
+    def stats_fn(T, prev):
+        return grey_net_with_stats(T, forcings.dtau, up_toa, up_sw, down_sw,
+                                   prev, pct=net_flux_percentile)
+    return net_fn, stats_fn
+
+
+def grey_evolve_ensemble(states: ColumnState, forcings: GreyForcing,
+                         p_interface, p_centre_col, flux_thresh,
+                         convective_adjust=False, t_end=4.0,
+                         net_flux_thresh=1e-7, net_flux_percentile=95,
+                         max_steps=500_000, use_delta_exit=True,
+                         check_every=1, dip_memory=False, fused_stats=True):
+    """March every member of (states, forcings) to equilibrium; the
+    pressure grid is shared.  ``fused_stats`` picks the fused net+stats
+    step (default) or the split one (see :func:`grey_march_fns`)."""
+    net_fn, stats_fn = grey_march_fns(forcings, states.net_flux.shape,
+                                      fused_stats, net_flux_percentile)
+    return column.evolve_to_equilibrium(
+        states, net_fn, p_interface, p_centre_col, flux_thresh=flux_thresh,
+        convective_adjust=convective_adjust, t_end=t_end,
+        net_flux_thresh=net_flux_thresh,
+        net_flux_percentile=net_flux_percentile, max_steps=max_steps,
+        use_delta_exit=use_delta_exit, check_every=check_every,
+        dip_memory=dip_memory, net_stats_fn=stats_fn)
+
+
+def grey_evolve_ensemble_robust(states: ColumnState, forcings: GreyForcing,
+                                p_interface, p_centre_col, flux_thresh,
+                                finish_repeats: int = 8,
+                                finish_max_steps: int = 1_000, **march_kw):
+    """Ensemble march plus an f64 finishing pass for precision-blocked
+    members (see :func:`grey_finish_unconverged_f64`).
+
+    :return: (final states, info, finished) where ``finished`` is the int
+        array of member indices completed by the f64 pass.
+    """
+    fs, info = grey_evolve_ensemble(states, forcings, p_interface,
+                                    p_centre_col, flux_thresh, **march_kw)
+    return grey_finish_unconverged_f64(
+        fs, info, forcings, p_interface, p_centre_col, flux_thresh,
+        finish_repeats=finish_repeats, finish_max_steps=finish_max_steps,
+        **march_kw)
+
+
+def grey_finish_unconverged_f64(fs: ColumnState, info, forcings: GreyForcing,
+                                p_interface, p_centre_col, flux_thresh,
+                                finish_repeats: int = 8,
+                                finish_max_steps: int = 1_000, **march_kw):
+    """Re-march ONLY the timed-out members of an already-marched ensemble in
+    float64, by the reference's unchanged exit criterion, and scatter them
+    back in the ensemble's dtype.
+
+    A small tail of f32 members (high insolation) cannot satisfy the
+    delta-percentile exit (base.py:248-264): the 95th-percentile flux-change
+    statistic has an f32 noise floor above the 1e-3 threshold, so the member
+    marches to the t_end cap although the same member converges in f64.
+    Each of up to ``finish_repeats`` fresh calls (t=0 restart, base.py:
+    301-306) runs at most ``finish_max_steps`` steps on the ensemble's
+    device; a member that converges in one repeat is frozen for the rest.
+
+    :return: (states, info, finished member indices)
+    """
+    eqb = info.equilibrium.cpu().numpy()
+    failed = info.failed.cpu().numpy()
+    nan = info.nan.cpu().numpy()
+    # only timed-out members are finishing candidates: failed/nan are real
+    # aborts the caller must see
+    cand = ~eqb & ~failed & ~nan
+    if not cand.any() or fs.T.dtype == torch.float64:
+        return fs, info, np.zeros((0,), np.int64)
+    bad_np = np.where(cand)[0]
+    bad = torch.as_tensor(bad_np, device=fs.T.device)
+    f64 = torch.float64
+
+    def sub64(x):
+        x = x[bad]
+        return x.to(f64) if x.is_floating_point() else x
+
+    st64 = fs.map(sub64)
+    fo64 = forcings.map(sub64)
+    p_i64, p_c64 = p_interface.to(f64), p_centre_col.to(f64)
+    # the threshold as the ensemble's dtype held it (ensemble.py:183)
+    ft64 = float(torch.as_tensor(flux_thresh, dtype=fs.T.dtype))
+    t_base = st64.t.clone()
+    steps_extra = torch.zeros_like(info.steps[bad])
+    kw64 = dict(march_kw, max_steps=int(finish_max_steps))
+    done = torch.zeros(len(bad_np), dtype=torch.bool, device=fs.T.device)
+    fin64 = info64 = None
+    for _ in range(int(finish_repeats)):
+        # fresh-call restart (base.py:301-306): t=0, forced first step
+        st64 = st64.replace(t=torch.zeros_like(st64.t))
+        st64, step_info = grey_evolve_ensemble(st64, fo64, p_i64, p_c64,
+                                               ft64, **kw64)
+        steps_extra = steps_extra + torch.where(done, 0, step_info.steps)
+        t_base = t_base + torch.where(done, 0.0, st64.t)
+        # a member that converged in an earlier repeat keeps that result
+        fin64 = st64 if fin64 is None else where_members(done, fin64, st64)
+        info64 = step_info if info64 is None else column.EquilibriumInfo(
+            *(where_members(done, a, b) for a, b in zip(info64, step_info)))
+        done = done | step_info.equilibrium
+        if bool(done.all()):
+            break
+
+    def scatter(full, part):
+        out = full.clone()
+        out[bad] = part.to(full.dtype)
+        return out
+
+    fs_out = fs.map(scatter, fin64)
+    # total simulated time = the f32 march's plus every finishing call's
+    fs_out = fs_out.replace(t=scatter(fs.t, t_base))
+    info_out = column.EquilibriumInfo(
+        steps=scatter(info.steps, info.steps[bad] + steps_extra),
+        delta_net_flux=scatter(info.delta_net_flux, info64.delta_net_flux),
+        flux_thresh=info.flux_thresh,
+        failed=scatter(info.failed, info64.failed),
+        equilibrium=scatter(info.equilibrium, info64.equilibrium),
+        nan=scatter(info.nan, info64.nan),
+        timed_out=scatter(info.timed_out,
+                          info64.timed_out & ~info64.equilibrium))
+    return fs_out, info_out, bad_np

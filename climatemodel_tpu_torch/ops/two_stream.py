@@ -1,0 +1,197 @@
+"""Two-stream grey radiative flux operators (port of
+``climatemodel_tpu/ops/two_stream.py``).
+
+The long-wave fluxes follow the reference's sequential per-level loop
+(grey.py:251-275 of the NumPy original), surface-first:
+
+    up[i]   = up[i+1]   * exp(+dtau[i]) + sigma*T[i]^4 * (1 - exp(+dtau[i]))
+    down[i] = down[i+1] * exp(-dtau[i]) + sigma*T[i]^4 * (1 - exp(-dtau[i]))
+
+with up = net absorbed stellar flux and down = 0 at the top of the
+atmosphere.  Each function that holds a kernel dispatches on the device of
+its tensors: a CPU tensor takes the plain PyTorch version beside the kernel
+(:func:`lw_flux_sequential`, :func:`net_stats_sequential`); any other
+device goes to the CUDA kernel in ``ops/cuda_two_stream.py``, which raises
+where it cannot launch.  There is no fallback from the kernel to the plain
+version.
+
+Short-wave fluxes are the closed-form Beer law (grey.py:277-294).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..constants import sigma
+
+
+def _source(T):
+    """sigma T^4, written as sigma (T^2 T^2) — the CUDA kernels round in
+    exactly this order, and JAX's ``T ** 4`` (``lax.integer_pow``) squares
+    twice too."""
+    sq = T * T
+    return sigma * (sq * sq)
+
+
+def lw_flux_sequential(T, dtau, up_flux_toa):
+    """Plain PyTorch twin of the ``lw_walk`` kernel (K1/K2): the
+    reference's sequential loop, surface-first.
+
+    The T-only factors (both exponentials and the source terms) are formed
+    for all levels at once; the loop then applies ``x * e + s (1 - e)`` in
+    the kernel's rounding order (one rounding per product and sum, no fused
+    multiply-add).
+
+    :param T, dtau: [nz-1, ...] cell temperatures and |optical depth
+        differences| (index 0 = surface).
+    :param up_flux_toa: [...] TOA upward boundary condition.
+    :return: (up, down) [nz, ...] interface fluxes.
+    """
+    dtau = torch.broadcast_to(dtau, T.shape)
+    src = _source(T)
+    # both streams walk together as one [2, ...] row: stream 0 up, 1 down
+    e = torch.exp(torch.stack([dtau, -dtau], 1))           # [n, 2, ...]
+    s = src[:, None] * (1.0 - e)
+    x = torch.stack([torch.broadcast_to(up_flux_toa, T.shape[1:]).to(T.dtype),
+                     torch.zeros(T.shape[1:], dtype=T.dtype, device=T.device)])
+    rows = [x]
+    for e_i, s_i in zip(reversed(e.unbind(0)), reversed(s.unbind(0))):
+        x = x * e_i + s_i
+        rows.append(x)
+    flux = torch.stack(rows[::-1])                          # [n+1, 2, ...]
+    return flux[:, 0], flux[:, 1]
+
+
+def lw_flux(T, dtau, up_flux_toa, surface_first=True):
+    """Grey long-wave up/down fluxes at interfaces from cell temperatures.
+
+    :param T: [nz-1, ...] cell temperatures.
+    :param dtau: [nz-1] (column-shared) or [nz-1, ...] |optical depth
+        difference| across each cell.
+    :param up_flux_toa: [...] top-of-atmosphere upward flux boundary
+        condition ((1-albedo_mod) * solar_latitude_factor * F_stellar / 4).
+    :param surface_first: only True (index 0 = surface) is ported.
+    :return: (up_lw_flux, down_lw_flux) at interfaces, shape [nz, ...].
+    """
+    if not surface_first:
+        raise NotImplementedError(
+            'the TOA-first orientation is not ported yet (ROADMAP Queue 1)')
+    batch_shape = T.shape[1:]
+    nlev = T.shape[0]
+    while dtau.ndim < T.ndim:                   # column-shared [nz-1] dtau
+        dtau = dtau[..., None]
+    Tf = T.reshape(nlev, -1).contiguous()
+    dtauf = torch.broadcast_to(dtau, T.shape).reshape(nlev, -1).contiguous()
+    toaf = torch.broadcast_to(torch.as_tensor(up_flux_toa, dtype=T.dtype,
+                                              device=T.device),
+                              batch_shape).reshape(-1).contiguous()
+    if T.device.type == 'cpu':
+        up, down = lw_flux_sequential(Tf, dtauf, toaf)
+    else:
+        from .cuda_two_stream import lw_walk
+        up, down = lw_walk(Tf, dtauf, toaf)
+    return (up.reshape((nlev + 1,) + batch_shape),
+            down.reshape((nlev + 1,) + batch_shape))
+
+
+def percentile_topk_params(n: int, pct) -> tuple[int, float]:
+    """(m, frac) of the exact-percentile order statistics: the default linear
+    interpolation of a percentile reads the m-th and (m-1)-th largest of n
+    values and lerps them by frac (see column._percentile_topk)."""
+    q = (n - 1) * float(pct) / 100.0
+    k0 = int(np.floor(q))
+    return n - k0, q - k0
+
+
+def topk_depth(n_stat: int, pct) -> int:
+    """L = max(m, 2): how many order statistics the fused net-stats
+    operator keeps for ``n_stat`` values at percentile ``pct``."""
+    m, _frac = percentile_topk_params(n_stat, pct)
+    return max(m, 2)
+
+
+def _stats(net, prev_net, L):
+    """Per-member exit statistics of a [B, ...] net flux: (top1, top_{L-1},
+    top_L) of |net - prev| and max|net|.  top1 is the NaN-propagating
+    maximum, so a NaN anywhere in a member's |net - prev| shows there
+    whatever order ``torch.topk`` gives NaN on the device."""
+    B = net.shape[0]
+    x = torch.abs(net - prev_net).reshape(B, -1)
+    top = torch.topk(x, L, dim=1).values
+    absmax = torch.amax(torch.abs(net).reshape(B, -1), dim=1)
+    return torch.amax(x, dim=1), top[:, L - 2], top[:, L - 1], absmax
+
+
+def net_stats_sequential(T, dtau, up_sw, down_sw, up_toa, prev_net, L):
+    """Plain PyTorch twin of the ``net_stats_walk`` kernel (K3), with the
+    batch on the last axis like the kernel.
+
+    :param T, dtau: [n, b] cells (index 0 = surface).
+    :param up_sw, down_sw, prev_net: [n+1, b] interfaces.
+    :param up_toa: [b] TOA upward lw boundary condition.
+    :param L: top-k depth (>= 2).
+    :return: (net [n+1, b], top1, top_hi, top_lo, absmax) — net =
+        ((up - down) + up_sw) - down_sw; top_* the 1st, (L-1)-th and L-th
+        largest of |net - prev| per member; absmax = max|net|.
+    """
+    up, down = lw_flux_sequential(T, dtau, up_toa)
+    net = up - down + up_sw - down_sw
+    top1, hi, lo, absmax = _stats(net.T, prev_net.T, L)
+    return net, top1, hi, lo, absmax
+
+
+def grey_net_with_stats(T, dtau, up_toa, up_sw, down_sw, prev_net, pct=95):
+    """Fused grey net flux + the march's exit statistics, for a batch of
+    members.
+
+    Routed as the JAX package routes it (two_stream.py:247-273): single
+    columns (ny == 1) go to the fused walk (K3 on CUDA, its plain twin on the
+    CPU); latitude grids take :func:`lw_flux` plus plain top-k.
+
+    :param T, dtau: [B, nz-1, ny]; up_sw, down_sw, prev_net: [B, nz, ny];
+        up_toa: [B, ny].  The sw fluxes and up_toa do not depend on T —
+        callers hoist them out of the march loop.
+    :param pct: exit percentile (reference net_flux_percentile).
+    :return: (net [B, nz, ny], top1, top_hi, top_lo, absmax), each stat [B].
+    """
+    B, nlev, ny = T.shape
+    L = topk_depth((nlev + 1) * ny, pct)
+    if ny == 1:
+        def lanes(x):
+            return x[:, :, 0].T.contiguous()           # [B, r, 1] -> [r, B]
+        args = (lanes(T), lanes(dtau), lanes(up_sw), lanes(down_sw),
+                up_toa[:, 0].contiguous(), lanes(prev_net), L)
+        if T.device.type == 'cpu':
+            net, top1, hi, lo, absmax = net_stats_sequential(*args)
+        else:
+            from .cuda_two_stream import net_stats_walk
+            net, top1, hi, lo, absmax = net_stats_walk(*args)
+        return net.T[:, :, None], top1, hi, lo, absmax
+    up, down = lw_flux(T.movedim(0, 1), dtau.movedim(0, 1), up_toa)
+    net = up.movedim(1, 0) - down.movedim(1, 0) + up_sw - down_sw
+    return (net,) + _stats(net, prev_net, L)
+
+
+def sw_flux(tau_sw_interface, albedo_mod, solar_latitude_factor, F_stellar,
+            isothermal=False):
+    """Beer-law short-wave fluxes at interfaces (grey.py:277-294).
+
+    ``albedo_mod``, ``solar_latitude_factor`` and ``F_stellar`` broadcast
+    against each other ([ny] per column, [B, ny] per batch); the level axis
+    of ``tau_sw_interface`` ([..., nz, ny]) is inserted before their last.
+    ``tau_sw_interface`` may be None for a transparent short-wave
+    atmosphere; ``isothermal=True`` returns the no-atmosphere fluxes used for
+    the initial condition (grey.py:104).
+    """
+    base_up = albedo_mod * solar_latitude_factor * F_stellar / 4.0
+    base_down = solar_latitude_factor * F_stellar / 4.0
+    if tau_sw_interface is None:
+        return base_up, base_down
+    base_up = base_up.unsqueeze(-2)
+    base_down = base_down.unsqueeze(-2)
+    if isothermal:
+        shape = torch.broadcast_shapes(base_up.shape, tau_sw_interface.shape)
+        return base_up.expand(shape), base_down.expand(shape)
+    up = base_up * torch.exp(tau_sw_interface)
+    down = base_down * torch.exp(-tau_sw_interface)
+    return up, down

@@ -1,0 +1,71 @@
+"""Carry state and forcing across from NumPy arrays.
+
+Each function here takes a mapping of NumPy arrays keyed by the JAX package's
+field names (``ColumnState``, ``TimeStepInfo``, ``GreyForcing``), plus a
+device and a float dtype, and returns the port's batched dataclass.  An
+unbatched single-column mapping (``T`` of shape [nz-1, ny]) gets a batch
+axis of one, so a JAX ``GreyGas.state`` pulled with ``jax.device_get`` and
+turned into a dict feeds the port directly.  Integer fields become int32,
+mask fields bool, every other field the given float dtype.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..models.column import ColumnState, TimeStepInfo
+from ..models.grey import GreyForcing
+
+_INT_FIELDS = ('max_tend_ind', 'n_same_1', 'n_same_2')
+_BOOL_FIELDS = ('removed', 'convective')
+
+
+def _as_mapping(x):
+    return x if isinstance(x, dict) else dataclasses.asdict(x)
+
+
+def _convert(name, value, device, dtype, add_batch):
+    a = np.asarray(value)
+    if add_batch:
+        a = a[None]
+    if name in _INT_FIELDS:
+        a = a.astype(np.int32)
+    elif name in _BOOL_FIELDS:
+        a = a.astype(bool)
+    else:
+        return torch.tensor(a, device=device).to(dtype)
+    return torch.tensor(a, device=device)
+
+
+def time_step_info_from_numpy(d, device='cpu', dtype=torch.float32,
+                              add_batch=None) -> TimeStepInfo:
+    """:class:`TimeStepInfo` from a mapping of NumPy arrays.  ``add_batch``
+    defaults to "the mapping is a single column" (0-d ``delta_t``)."""
+    d = _as_mapping(d)
+    if add_batch is None:
+        add_batch = np.ndim(d['delta_t']) == 0
+    return TimeStepInfo(**{f.name: _convert(f.name, d[f.name], device, dtype,
+                                            add_batch)
+                           for f in dataclasses.fields(TimeStepInfo)})
+
+
+def column_state_from_numpy(d, device='cpu', dtype=torch.float32) -> ColumnState:
+    """:class:`ColumnState` from a mapping with ``T``, ``net_flux``, ``t``
+    and ``tsi`` (itself a mapping or dataclass of arrays)."""
+    d = _as_mapping(d)
+    add_batch = np.ndim(d['T']) == 2
+    conv = lambda k: _convert(k, d[k], device, dtype, add_batch)  # noqa: E731
+    return ColumnState(T=conv('T'), net_flux=conv('net_flux'), t=conv('t'),
+                       tsi=time_step_info_from_numpy(d['tsi'], device, dtype,
+                                                     add_batch))
+
+
+def grey_forcing_from_numpy(d, device='cpu', dtype=torch.float32) -> GreyForcing:
+    """:class:`GreyForcing` from a mapping with the JAX field names."""
+    d = _as_mapping(d)
+    add_batch = np.ndim(d['dtau']) == 2
+    return GreyForcing(**{f.name: _convert(f.name, d[f.name], device, dtype,
+                                           add_batch)
+                          for f in dataclasses.fields(GreyForcing)})

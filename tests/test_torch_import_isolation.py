@@ -1,0 +1,35 @@
+"""The PyTorch port stands alone: it imports with ``jax`` blocked and never
+names the JAX package."""
+import pathlib
+import re
+import subprocess
+import sys
+
+import climatemodel_tpu_torch
+
+PORT = pathlib.Path(climatemodel_tpu_torch.__file__).parent
+MODULES = sorted('climatemodel_tpu_torch.' + '.'.join(
+    p.relative_to(PORT).with_suffix('').parts)
+    for p in PORT.rglob('*.py') if p.name != '__init__.py')
+
+
+def test_port_imports_with_jax_blocked():
+    code = ('import sys\n'
+            "sys.modules['jax'] = None\n"
+            "sys.modules['climatemodel_tpu'] = None\n"
+            + ''.join(f'import {m}\n' for m in MODULES)
+            + "assert not any(k == 'jax' or k.startswith(('jax.', "
+              "'climatemodel_tpu.')) for k, v in sys.modules.items() "
+              "if v is not None)\n")
+    root = PORT.parent
+    proc = subprocess.run([sys.executable, '-c', code], cwd=root,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert len(MODULES) >= 10
+
+
+def test_port_sources_never_import_jax():
+    pat = re.compile(r'^\s*(import|from)\s+(jax|climatemodel_tpu)\b',
+                     re.MULTILINE)
+    for p in PORT.rglob('*.py'):
+        assert not pat.search(p.read_text()), p

@@ -1,0 +1,185 @@
+"""Port vs JAX: the grey two-stream operators of
+``climatemodel_tpu_torch/ops/two_stream.py`` against
+``climatemodel_tpu/ops/two_stream.py`` and the Pallas kernels run in
+interpret mode.  Same numpy-seeded inputs into both; the CUDA kernels
+themselves are compared with these plain versions on the card by
+``chip_smoke.py``."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax import lax
+
+from climatemodel_tpu.ops import two_stream as jts
+from climatemodel_tpu.ops.pallas_two_stream import (grey_net_stats_lanes,
+                                                    lw_flux_lanes)
+from climatemodel_tpu_torch.ops import two_stream as pts
+
+# Bounds relative to the largest flux: XLA's CPU exp is not libm's (nor
+# PyTorch's vectorised one), and the walk multiplies each exp's rounding by
+# up to e^tau of the column.
+REL_BOUND = {np.float64: 1e-12, np.float32: 1e-5}
+T_DTYPE = {np.float64: torch.float64, np.float32: torch.float32}
+
+
+def _walk_inputs(rng, n, b, dtype):
+    T = (200 + 100 * rng.random((n, b))).astype(dtype)
+    dtau = (0.2 * rng.random((n, b))).astype(dtype)
+    toa = (200 + 50 * rng.random((b,))).astype(dtype)
+    return T, dtau, toa
+
+
+def _rel_err(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return np.abs(a - b).max() / np.abs(b).max()
+
+
+@pytest.mark.parametrize('dtype', [np.float64, np.float32])
+@pytest.mark.parametrize('n,b', [(59, 7), (24, 130), (60, 1030)])
+def test_lw_walk_matches_jax_sequential_and_pallas(n, b, dtype):
+    """The port's plain walk (the K1/K2 twin) against JAX's
+    ``lw_flux_sequential`` and, in f32, the Pallas kernel in interpret
+    mode."""
+    rng = np.random.default_rng(n * 1000 + b)
+    T, dtau, toa = _walk_inputs(rng, n, b, dtype)
+    td = T_DTYPE[dtype]
+    up_p, dn_p = pts.lw_flux_sequential(torch.from_numpy(T),
+                                        torch.from_numpy(dtau),
+                                        torch.from_numpy(toa))
+    assert up_p.dtype == td and up_p.shape == (n + 1, b)
+    refs = [jts.lw_flux_sequential(jnp.asarray(T), jnp.asarray(dtau),
+                                   jnp.asarray(toa))]
+    if dtype == np.float32:              # the Pallas kernels are f32 only
+        refs.append(lw_flux_lanes(jnp.asarray(T), jnp.asarray(dtau),
+                                  jnp.asarray(toa), interpret=True))
+    for up_j, dn_j in refs:
+        assert _rel_err(up_p, up_j) <= REL_BOUND[dtype]
+        assert _rel_err(dn_p, dn_j) <= REL_BOUND[dtype]
+    # the dispatcher takes the plain walk for CPU tensors
+    up_d, dn_d = pts.lw_flux(torch.from_numpy(T), torch.from_numpy(dtau),
+                             torch.from_numpy(toa))
+    assert torch.equal(up_d, up_p) and torch.equal(dn_d, dn_p)
+
+
+def _stats_inputs(rng, n, b, dtype=np.float32):
+    T, dtau, toa = _walk_inputs(rng, n, b, dtype)
+    usw = (100 * rng.random((n + 1, b))).astype(dtype)
+    dsw = (300 * rng.random((n + 1, b))).astype(dtype)
+    prev = (300 * rng.random((n + 1, b)) - 150).astype(dtype)
+    return T, dtau, usw, dsw, toa, prev
+
+
+@pytest.mark.parametrize('n,b,pct', [(59, 130, 95), (149, 16, 95), (5, 9, 50)])
+def test_net_stats_matches_pallas_interpret(n, b, pct):
+    """The port's plain net-stats (the K3 twin) against
+    ``grey_net_stats_lanes`` in interpret mode, f32.  net to the walk's
+    bound; the order statistics are selections of |net - prev|, so they
+    agree to the same bound relative to the largest |net - prev|."""
+    rng = np.random.default_rng(7 * n + b)
+    args = _stats_inputs(rng, n, b)
+    L = pts.topk_depth(n + 1, pct)
+    m, _ = jts.percentile_topk_params(n + 1, pct)
+    assert L == max(m, 2)
+    out_j = grey_net_stats_lanes(*(jnp.asarray(a) for a in args), L,
+                                 interpret=True)
+    out_p = pts.net_stats_sequential(*(torch.from_numpy(a) for a in args), L)
+    net_j, net_p = np.asarray(out_j[0]), out_p[0].numpy()
+    assert _rel_err(net_p, net_j) <= 1e-5
+    scale = np.abs(net_j - args[5]).max()
+    for sj, sp in zip(out_j[1:], out_p[1:]):
+        assert np.abs(sp.numpy() - np.asarray(sj)).max() <= 1e-5 * scale
+
+
+def test_net_stats_nan_sentinel():
+    """A NaN anywhere in a member's |net - prev| makes that member's top_1
+    NaN and no other's; max|net| stays finite (as
+    test_two_stream.py::test_pallas_net_stats_kernel_nan_sentinel)."""
+    rng = np.random.default_rng(34)
+    n, b = 12, 16
+    T, dtau, toa = _walk_inputs(rng, n, b, np.float32)
+    zeros = np.zeros((n + 1, b), np.float32)
+    prev = zeros.copy()
+    prev[4, 3] = np.nan
+    args = (T, dtau, zeros, zeros, toa, prev)
+    _, top1_j, _, _, amax_j = grey_net_stats_lanes(
+        *(jnp.asarray(a) for a in args), 3, interpret=True)
+    _, top1_p, _, _, amax_p = pts.net_stats_sequential(
+        *(torch.from_numpy(a) for a in args), 3)
+    np.testing.assert_array_equal(torch.isnan(top1_p).numpy(),
+                                  np.isnan(np.asarray(top1_j)))
+    assert bool(torch.isnan(top1_p[3])) and int(torch.isnan(top1_p).sum()) == 1
+    assert not bool(torch.isnan(amax_p).any())
+
+
+@pytest.mark.parametrize('ny', [1, 3])
+def test_grey_net_with_stats_matches_jax_split_path(ny):
+    """The member-batched dispatcher against JAX's vmapped
+    ``grey_net_with_stats`` in f64 (ny == 1 takes the fused twin, ny > 1 the
+    lw walk + top-k, as in JAX); bound 1e-12 relative, as the walk."""
+    import jax
+    rng = np.random.default_rng(35 + ny)
+    B, n = 6, 30
+    T = 220 + 60 * rng.random((B, n, ny))
+    dtau = 0.15 * rng.random((B, n, ny))
+    toa = 200 + 40 * rng.random((B, ny))
+    usw = 50 * rng.random((B, n + 1, ny))
+    dsw = 340 * rng.random((B, n + 1, ny))
+    prev = 200 * rng.random((B, n + 1, ny)) - 100
+    args = (T, dtau, toa, usw, dsw, prev)
+    out_j = jax.vmap(lambda *a: jts.grey_net_with_stats(*a, pct=95))(
+        *(jnp.asarray(a) for a in args))
+    out_p = pts.grey_net_with_stats(*(torch.from_numpy(a) for a in args),
+                                    pct=95)
+    assert out_p[0].shape == (B, n + 1, ny)
+    for a_j, a_p in zip(out_j, out_p):
+        a_j = np.asarray(a_j)
+        assert np.abs(a_p.numpy() - a_j).max() <= 1e-12 * np.abs(a_j).max()
+
+
+def test_sw_flux_and_percentile_params_equal():
+    """sw_flux is the same Beer law (torch's and XLA's exp may differ by an
+    ulp: bound 4 ulp of f64); percentile_topk_params is identical."""
+    tau = np.linspace(0.5, 0.0, 11)[:, None] * np.ones((1, 2))
+    albedo_mod = np.array([0.3, 0.2])
+    sol = np.array([1.0, 1.1])
+    for iso in (False, True):
+        up_j, dn_j = jts.sw_flux(jnp.asarray(tau), jnp.asarray(albedo_mod),
+                                 jnp.asarray(sol), 1367.0, isothermal=iso)
+        up_p, dn_p = pts.sw_flux(torch.from_numpy(tau),
+                                 torch.from_numpy(albedo_mod),
+                                 torch.from_numpy(sol), 1367.0, isothermal=iso)
+        np.testing.assert_allclose(up_p.numpy(), np.asarray(up_j),
+                                   rtol=4 * np.finfo(np.float64).eps)
+        np.testing.assert_allclose(dn_p.numpy(), np.asarray(dn_j),
+                                   rtol=4 * np.finfo(np.float64).eps)
+    for n in (2, 6, 21, 60, 150, 600):
+        for pct in (50, 90, 95, 99):
+            assert pts.percentile_topk_params(n, pct) == \
+                jts.percentile_topk_params(n, pct)
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """The CUDA wrappers never compute on the CPU: a CPU tensor raises
+    before anything is built or launched."""
+    from climatemodel_tpu_torch.ops import cuda_two_stream as cts
+    T = torch.ones((4, 3))
+    with pytest.raises(ValueError, match='CUDA tensor'):
+        cts.lw_walk(T, T, torch.ones(3))
+    with pytest.raises(ValueError, match='CUDA tensor'):
+        cts.net_stats_walk(T, T, torch.ones(5, 3), torch.ones(5, 3),
+                           torch.ones(3), torch.ones(5, 3), 2)
+    assert cts.launch_counts == {'lw_walk': 0, 'net_stats_walk': 0}
+
+
+def test_top_k_orders_like_lax_on_cpu():
+    """torch.topk / torch.argmax against lax.top_k / jnp.argmax on NaN
+    ordering, first-index ties and signed zeros (CPU)."""
+    x = np.array([[1.0, 3.0, np.nan, 3.0, -0.0, 0.0],
+                  [2.0, 2.0, 1.0, 0.5, 2.0, -1.0]])
+    vj = np.asarray(lax.top_k(jnp.asarray(x), 4)[0])
+    vp = torch.topk(torch.from_numpy(x), 4, dim=1).values.numpy()
+    np.testing.assert_array_equal(vp, vj)
+    y = np.where(np.isnan(x), 0.0, x)
+    np.testing.assert_array_equal(
+        torch.argmax(torch.from_numpy(y), dim=1).numpy(),
+        np.asarray(jnp.argmax(jnp.asarray(y), axis=1)))
