@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``climatemodel_tpu_torch``) on one NVIDIA
-GPU: builds the CUDA kernels from ``climatemodel_tpu_torch/ops/csrc/``,
-holds each against its plain PyTorch version on the card, drives the grey
-radiative-equilibrium ensemble march at the headline size, checks the card
-against the CPU, and times the kernels.
+GPU: builds the CUDA kernels from ``climatemodel_tpu_torch/ops/csrc/`` (one
+``nvcc`` per source, all at once), holds each against its plain PyTorch
+version on the card, probes the f32 division the kernels compile to, drives
+the grey radiative-equilibrium ensemble march at the headline size and the
+radiative-convective marches (the 512-member convective ensemble and the
+single thermosphere world, both adjustment methods), checks the card
+against the CPU step by step, and times the kernels.
 
     python3 chip_smoke.py
 
@@ -18,6 +21,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -28,6 +32,29 @@ HEADLINE = dict(members=4096, nz=60, F=(800.0, 1600.0), flux_thresh=1e-3,
 # its CPU smoke configuration (bench.py:780)
 SMOKE = dict(members=64, nz=40, max_steps=600)
 SAMPLED = (0, 1000, 2000, 3000, 4095)
+
+# bench_rce_conv_ensemble (bench.py:510) and bench_rce_conv (bench.py:426):
+# the thermosphere world (cli.grey_world_kwargs('thermosphere'),
+# radiation_script.py:32-36) at nz=150, f32
+CONV = dict(members=512, nz=150, F=(1200.0, 1500.0), flux_thresh=0.1,
+            max_steps=3000)
+CONV_SINGLE = dict(nz=150, flux_thresh=1e-3, t_end=30.0)
+CONV_SAMPLED = (0, 170, 341, 511)
+METHODS = ('reference', 'isotonic')
+ISO_SHAPES = [(512, 149), (4096, 59), (7, 149), (129, 64), (1, 8), (17, 255)]
+
+
+def thermosphere_kwargs(p_surface_earth):
+    """GreyGas kwargs of the thermosphere world (cli.py:140-144)."""
+    return dict(tau_lw_func='scale_height_and_peak_in_atmosphere',
+                tau_lw_func_args=[51000, 4, 100, 600, 0.1],
+                tau_sw_func='scale_height_and_peak_in_atmosphere',
+                tau_sw_func_args=[p_surface_earth, 0.12, 100, 20, 0.002])
+
+
+# The card's published peaks (on-chip-measurement guide; H100 SXM at 700 W)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 
 # Kernel vs plain PyTorch version on the card, in units in the last place of
 # the kernel's dtype.  Both take the same ops in the same order with one
@@ -170,7 +197,19 @@ def build_world(GreyGas, p_surface_earth, nz, device):
                    device=device)
 
 
-def phase_main(ens, GreyGas, p_surface_earth, cts, dev):
+def reset_counts(mods):
+    for m in mods:
+        m.reset_launch_counts()
+
+
+def read_counts(mods):
+    out = {}
+    for m in mods:
+        out.update(m.launch_counts)
+    return out
+
+
+def phase_main(ens, GreyGas, p_surface_earth, mods, dev):
     """The headline ensemble march, its f64 finish, and one single-world
     march, all on the card (phase 3).  Launch counts cover this phase."""
     import numpy as np
@@ -183,7 +222,7 @@ def phase_main(ens, GreyGas, p_surface_earth, cts, dev):
     def run():
         return ens.grey_evolve_ensemble(states, forcings, p_int, p_c, ft,
                                         max_steps=HEADLINE['max_steps'])
-    cts.reset_launch_counts()
+    reset_counts(mods)
     t0 = time.perf_counter()
     out = run()
     torch.cuda.synchronize()
@@ -195,7 +234,7 @@ def phase_main(ens, GreyGas, p_surface_earth, cts, dev):
         torch.cuda.synchronize()
         wall = min(wall, time.perf_counter() - t0)
     fs, info = out
-    k3_ensemble = cts.launch_counts['net_stats_walk']
+    k3_ensemble = read_counts(mods)['net_stats_walk']
     days = float(fs.t.double().sum()) / 86400.0
     res = dict(members=HEADLINE['members'], nz=world.nz,
                model_days_per_sec=days / wall, wall_s=wall, warm_run_s=warm_s,
@@ -227,7 +266,7 @@ def phase_main(ens, GreyGas, p_surface_earth, cts, dev):
                single_world_steps=int(single._equilibrium_info.steps),
                single_world_max_err_K=float(
                    np.abs(single.T - T_eqb)[active].max()))
-    launches = dict(cts.launch_counts)
+    launches = read_counts(mods)
     res.update(launches_k3=launches['net_stats_walk'],
                launches_k3_ensemble_runs=k3_ensemble,
                launches_k1=launches['lw_walk'])
@@ -253,11 +292,15 @@ def march_on(ens, states, forcings, p_int, p_c, idx, device, max_steps):
 
 
 def lockstep_card_vs_cpu(ens, states, forcings, p_int, p_c, idx, dev,
-                         max_steps, active):
+                         max_steps, active, flux_thresh=HEADLINE['flux_thresh'],
+                         conv_kw=None):
     """March members ``idx`` on the card one step at a time; before every
     step the CPU (plain versions) takes the same carry.  Returns the largest
-    per-step |T card - T CPU| on ``active`` levels and the number of
-    member-steps whose exit flags differ."""
+    per-step |T card - T CPU| on ``active`` levels, the number of
+    member-steps whose exit flags differ, the number of steps, and the
+    number of (member-step, level) convective flags that differ — the
+    adjustment's decisions (``conv_kw``: convective keywords of
+    ``column.march_step``, with ``p_centre_col`` on the card)."""
     import torch
     from climatemodel_tpu_torch.models import column as col
     sub = lambda d: (lambda x: x[idx.to(x.device)].to(d))  # noqa: E731
@@ -267,27 +310,32 @@ def lockstep_card_vs_cpu(ens, states, forcings, p_int, p_c, idx, dev,
     fns = ens.grey_march_fns(fo, st.net_flux.shape)
     fns_c = ens.grey_march_fns(fo_c, st.net_flux.shape)
     B = len(idx)
-    ft = torch.full((B,), HEADLINE['flux_thresh'], dtype=st.T.dtype,
-                    device=dev)
+    conv_kw = dict(conv_kw or {})
+    conv_c = dict(conv_kw)
+    if conv_kw:
+        conv_c['p_centre_col'] = conv_kw['p_centre_col'].cpu()
+    ft = torch.full((B,), flux_thresh, dtype=st.T.dtype, device=dev)
     i = torch.zeros((B,), dtype=torch.int32, device=dev)
     stop = torch.zeros((B,), dtype=torch.bool, device=dev)
     t0 = st.t
-    worst, flag_diffs, steps = 0.0, 0, 0
+    worst, flag_diffs, steps, conv_diffs = 0.0, 0, 0, 0
     while True:
         go = ~stop & (i < max_steps)
         if not bool(go.any()):
-            return worst, flag_diffs, steps
+            return worst, flag_diffs, steps, conv_diffs
         steps += 1
         new = col.march_step(st, ft, i, t0, fns[0], p_int, t_end=4.0,
-                             net_stats_fn=fns[1])
+                             net_stats_fn=fns[1], **conv_kw)
         cpu = col.march_step(st.map(lambda x: x.cpu()), ft.cpu(), i.cpu(),
                              t0.cpu(), fns_c[0], p_int.cpu(), t_end=4.0,
-                             net_stats_fn=fns_c[1])
+                             net_stats_fn=fns_c[1], **conv_c)
         g = go.cpu()
         dT = (new[0].T.cpu() - cpu[0].T)[g][:, active].abs()
         worst = max(worst, float(dT.max()) if dT.numel() else 0.0)
         flag_diffs += int(sum((a.cpu() != b)[g].sum()
                               for a, b in zip(new[3:], cpu[3:])))
+        conv_diffs += int((new[0].tsi.convective.cpu()
+                           != cpu[0].tsi.convective)[g].sum())
         st, ft = (col.where_members(go, a, b) for a, b in
                   ((new[0], st), (new[1], ft)))
         i = torch.where(go, i + 1, i)
@@ -316,7 +364,7 @@ def phase_card_vs_cpu(ens, GreyGas, p_surface_earth, main, dev):
     fc, ic = march_on(ens, states, forcings, p_int, p_c, idx, 'cpu',
                       HEADLINE['max_steps'])
     dT = (fc.T[:, active] - fs.T[idx.to(dev)][:, active].cpu()).abs()
-    lock_dT, lock_flags, lock_steps = lockstep_card_vs_cpu(
+    lock_dT, lock_flags, lock_steps, _ = lockstep_card_vs_cpu(
         ens, states, forcings, p_int, p_c, idx, dev, HEADLINE['max_steps'],
         active)
     res = dict(sampled=list(SAMPLED), lockstep_steps=lock_steps,
@@ -353,6 +401,269 @@ def phase_card_vs_cpu(ens, GreyGas, p_surface_earth, main, dev):
           'sampled members: equilibrium flags differ between card and CPU')
 
 
+def iso_inputs(gen, b, n, dtype, dev):
+    """SV [n+1, b] and SW [n+1] of random profiles, formed on the card as
+    ``convection._iso_rows`` forms them."""
+    import torch
+    theta = (200 + 100 * torch.rand(b, n, generator=gen, dtype=torch.float64)
+             ).to(dtype).to(dev)
+    v = torch.empty(n, dtype=torch.float64).uniform_(0.5, 2.0, generator=gen
+                                                     ).to(dtype).to(dev)
+    zero = torch.zeros((1, b), dtype=dtype, device=dev)
+    SV = torch.cat([zero, torch.cumsum(v[:, None] * theta.T, dim=0)])
+    SW = torch.cat([zero[0, :1], torch.cumsum(v, dim=0)])
+    return SV, SW
+
+
+def phase_conv_kernels(ccv, pc, dev):
+    """iso_fit (K4) against its plain version on the card, f32 and f64, at
+    the convective ensemble's width, the grey headline's, and ragged
+    shapes (phase 2b)."""
+    import torch
+    at_main = {}
+    for dtype in (torch.float32, torch.float64):
+        gen = torch.Generator().manual_seed(4)
+        for b, n in ISO_SHAPES:
+            SV, SW = iso_inputs(gen, b, n, dtype, dev)
+            k = ccv.iso_fit(SV, SW)
+            p = pc.iso_fit_plain(SV, SW)
+            torch.cuda.synchronize()
+            ulp, err = ulp_diff(k, p), max_abs(k, p)
+            emit('kernel_vs_plain', kernel='iso_fit', dtype=str(dtype), b=b,
+                 n=n, max_ulp=ulp, max_abs_err=err, bit_equal=ulp == 0)
+            check(ulp <= ULP_BOUND, f'iso_fit {b}x{n} {dtype}: {ulp} ulp')
+            if (b, n) == ISO_SHAPES[0] and dtype == torch.float32:
+                at_main['iso_fit'] = err
+    return at_main
+
+
+def probe_inputs():
+    """The division probe's own inputs (tools/probe_mosaic_div.py:50-56)."""
+    import numpy as np
+    rng = np.random.default_rng(11)
+    a = np.float32(10.0 ** rng.uniform(-6, 4, (256, 128))
+                   * rng.choice([-1, 1], (256, 128)))
+    b = np.float32(10.0 ** rng.uniform(-4, 5, (256, 128))
+                   * rng.choice([-1, 1], (256, 128)))
+    return a, b
+
+
+def phase_div_probe(pc, mods, dev, ptx_text):
+    """K7: the f32 division compiled into convection.cu against PyTorch's
+    CUDA division (and numpy's) on the probe's inputs, per pattern; and
+    which division instructions the PTX holds (phase 2c).  The probe is
+    driven through ``convection.div_probe`` with the counts at 0."""
+    import numpy as np
+    import torch
+    a_np, b_np = probe_inputs()
+    a, b = torch.from_numpy(a_np).to(dev), torch.from_numpy(b_np).to(dev)
+    reset_counts(mods)
+    outs_k = pc.div_probe(a, b)
+    torch.cuda.synchronize()
+    launches = read_counts(mods)['div_probe']
+    outs_p = pc.div_probe_plain(a, b)
+    C = np.float32(9.81 / 1004.64)
+    outs_np = (a_np / b_np, C * a_np / b_np, a_np / np.abs(b_np))
+    res, err = {}, 0.0
+    for name, k, p, x in zip(('a_div_b', 'c_mul_a_div_b', 'a_div_abs_b'),
+                             outs_k, outs_p, outs_np):
+        k, p = k.cpu().numpy(), p.cpu().numpy()
+        rel = np.abs(k - p) / np.maximum(np.abs(p), 1e-30)
+        res[name] = {'bit_equal': bool(np.array_equal(k, p)),
+                     'max_rel': float(np.nanmax(rel)),
+                     'frac_differ': float(np.mean(k != p)),
+                     'bit_equal_numpy': bool(np.array_equal(k, x))}
+        err = max(err, float(np.abs(k.astype(np.float64) - p).max()))
+    ptx_div = {pat: ptx_text.count(pat) for pat in
+               ('div.rn.f32', 'div.approx', 'div.full', 'div.rn.f64',
+                'rcp.approx')}
+    emit('div_probe', launches=launches, ptx_division=ptx_div, **res)
+    check(launches == 1, f'div_probe launched {launches} times, not once')
+    check(all(r['bit_equal'] for r in res.values()),
+          'div_probe differs from PyTorch\'s CUDA division')
+    check(ptx_div['div.rn.f32'] > 0 and ptx_div['div.approx'] == 0
+          and ptx_div['div.full'] == 0,
+          f'convection.cu PTX divides approximately: {ptx_div}')
+    return dict(err=err, launches=launches, a=a, b=b)
+
+
+def phase_conv_main(ens, GreyGas, p_surface_earth, mods, dev):
+    """The radiative-convective path on the card (phase 3b): the 512-member
+    convective ensemble (bench.py:510) with each adjustment method, its f64
+    finish, and the single thermosphere world (bench.py:426) with each
+    method.  Launch counts are read per method and cover that method's
+    ensemble runs, f64 pass and single-world march."""
+    import numpy as np
+    import torch
+    from climatemodel_tpu_torch.constants import R_specific, c_p_dry
+    kw = thermosphere_kwargs(p_surface_earth)
+    world = GreyGas(nz=CONV['nz'], ny=1, device=dev, **kw)
+    F = np.linspace(*CONV['F'], CONV['members'])
+    states, forcings, p_int, p_c = ens.grey_ensemble(world, F)
+    ft = CONV['flux_thresh']
+    out = {}
+    for method in METHODS:
+        march_kw = dict(convective_adjust=True, conv_method=method,
+                        max_steps=CONV['max_steps'])
+
+        def run():
+            return ens.grey_evolve_ensemble(states, forcings, p_int, p_c, ft,
+                                            **march_kw)
+        reset_counts(mods)
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        wall = float('inf')
+        for _ in range(3):
+            t0 = time.perf_counter()
+            res = run()
+            torch.cuda.synchronize()
+            wall = min(wall, time.perf_counter() - t0)
+        fs, info = res
+        days = float(fs.t.double().sum()) / 86400.0
+        r = dict(method=method, members=CONV['members'], nz=world.nz,
+                 model_days_per_sec=days / wall, wall_s=wall,
+                 warm_run_s=warm_s, total_steps=int(info.steps.sum()),
+                 lockstep_iterations=int(info.steps.max()),
+                 converged_fraction_f32=float(
+                     info.equilibrium.double().mean()),
+                 nan_members=int(info.nan.sum()),
+                 failed_members=int(info.failed.sum()),
+                 timed_out_members=int(info.timed_out.sum()),
+                 iso_fit_launches_4_marches=read_counts(mods)['iso_fit'])
+        t0 = time.perf_counter()
+        fs_r, info_r, finished = ens.grey_finish_unconverged_f64(
+            fs, info, forcings, p_int, p_c, ft, **march_kw)
+        torch.cuda.synchronize()
+        eqb = info_r.equilibrium.cpu().numpy()
+        r.update(f64_finish_wall_s=time.perf_counter() - t0,
+                 f64_finished_members=int(len(finished)),
+                 converged_fraction=float(eqb.mean()),
+                 unconverged_F=[float(x) for x in F[~eqb]],
+                 nan_after_f64=int(info_r.nan.sum()),
+                 failed_after_f64=int(info_r.failed.sum()))
+        # the single world, built without naming a device: the card
+        single = [GreyGas(nz=CONV_SINGLE['nz'], ny=1, **kw) for _ in range(2)]
+        check(single[0].device.type == 'cuda', 'GreyGas did not default to '
+              'the card')
+        for w in single:                       # a warm march, a timed one
+            t0 = time.perf_counter()
+            w.evolve_to_equilibrium(flux_thresh=CONV_SINGLE['flux_thresh'],
+                                    save=False, convective_adjust=True,
+                                    conv_method=method,
+                                    t_end=CONV_SINGLE['t_end'])
+            torch.cuda.synchronize()
+            s_wall = time.perf_counter() - t0
+        w = single[-1]
+        # stability as tests/test_grey_rce.py:112-129 checks it, with the
+        # f32 march's own instability tolerance in place of the f64 test's
+        # 1e-7 (one ulp of theta is ~3e-5 K in f32)
+        alpha = R_specific / c_p_dry
+        active = w.tau[:, 0] > 0.05
+        theta = w.T[:, 0].astype(np.float64) / (
+            w.p[:, 0] / p_surface_earth) ** alpha
+        tol = np.maximum(1e-7, 16 * np.finfo(np.float32).eps * np.maximum(
+            np.abs(theta[:-1]), np.abs(theta[1:])))
+        d = np.diff(theta)[active[:-1]]
+        launches = read_counts(mods)
+        r.update(single_world=dict(
+            nz=w.nz, steps=int(w._equilibrium_info.steps), wall_s=s_wall,
+            equilibrium=bool(w._equilibrium_info.equilibrium),
+            model_days_per_sec=float(w.state.t[0]) / 86400.0 / s_wall,
+            min_dtheta_active=float(d.min()),
+            min_dtheta_over_tol=float((d / tol[active[:-1]]).min()),
+            T_min=float(w.T.min()), T_max=float(w.T.max())),
+            launches=launches)
+        emit('conv_main_path', **r)
+        check(r['nan_members'] == 0 and r['failed_members'] == 0,
+              f'{method}: nan or failed members in the f32 march')
+        check(r['nan_after_f64'] == 0 and r['failed_after_f64'] == 0,
+              f'{method}: nan or failed members after the f64 pass')
+        check(bool(torch.isfinite(fs_r.T).all()), 'non-finite temperatures')
+        if method == 'isotonic':
+            check(launches['iso_fit'] > 0, 'K4 never launched on the '
+                  'isotonic path')
+        else:
+            check(launches['iso_fit'] == 0, 'K4 launched on the reference '
+                  'path')
+        check(launches['net_stats_walk'] > 0, 'K3 never launched on the '
+              'convective path')
+        check(bool((d > -tol[active[:-1]]).all()),
+              f'{method}: single world unstable on tau > 0.05')
+        check(150 < w.T.min() and w.T.max() < 400,
+              f'{method}: single world T outside (150, 400) K')
+        out[method] = r
+    return out, (states, forcings, p_int, p_c, world)
+
+
+def phase_conv_profile(ens, conv_state):
+    """Where a convective ensemble march's time goes (phase 4c): one march
+    per method under ``torch.profiler`` (CUDA activity only): wall, device
+    busy time (the kernels' time summed), kernel launches per lock-step
+    iteration, and the kernels that take the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    states, forcings, p_int, p_c, _ = conv_state
+    res = {}
+    for method in METHODS:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _, info = ens.grey_evolve_ensemble(
+                states, forcings, p_int, p_c, CONV['flux_thresh'],
+                convective_adjust=True, conv_method=method,
+                max_steps=CONV['max_steps'])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rows = [(getattr(e, 'device_time_total', None)
+                 or getattr(e, 'cuda_time_total', 0), e.count, e.key)
+                for e in prof.key_averages()]
+        rows = [r for r in rows if r[0] > 0]           # device work only
+        busy = sum(r[0] for r in rows) / 1e6
+        iters = int(info.steps.max())
+        res[method] = dict(
+            wall_s=wall, device_busy_s=busy,
+            device_idle_share=1 - busy / wall if busy > 0 else None,
+            lockstep_iterations=iters,
+            device_ops_per_iteration=sum(r[1] for r in rows) / iters,
+            top_kernels_ms=[[k[:60], round(t / 1e3, 3), c] for t, c, k in
+                            sorted(rows, reverse=True)[:6]])
+    emit('conv_profile', **res)
+
+
+def phase_conv_card_vs_cpu(ens, conv_state, dev, max_steps=400):
+    """Members CONV_SAMPLED of the convective ensemble, each method, step by
+    step from the card's carry: the CPU's plain path within 0.1 K on levels
+    with tau > 0.03 (phase 4b).  The march is cut at ``max_steps``."""
+    import torch
+    states, forcings, p_int, p_c, world = conv_state
+    idx = torch.tensor(CONV_SAMPLED)
+    active = torch.from_numpy(world.tau[:, 0] > 0.03)
+    res = {}
+    for method in METHODS:
+        conv_kw = dict(convective_adjust=True, conv_method=method,
+                       p_centre_col=p_c)
+        dT, flags, steps, conv_diffs = lockstep_card_vs_cpu(
+            ens, states, forcings, p_int, p_c, idx, dev, max_steps, active,
+            flux_thresh=CONV['flux_thresh'], conv_kw=conv_kw)
+        res[method] = dict(lockstep_steps=steps, lockstep_max_dT_K=dT,
+                           lockstep_flag_diffs=flags,
+                           lockstep_convective_flag_diffs=conv_diffs)
+    emit('conv_card_vs_cpu', sampled=list(CONV_SAMPLED), **res)
+    for method in METHODS:
+        check(res[method]['lockstep_max_dT_K'] < T_BOUND_K,
+              f'{method}: card and CPU steps differ by '
+              f'{res[method]["lockstep_max_dT_K"]} K')
+
+
+def bound(nbytes, ops):
+    """(ms, 'bytes' | 'operations'): the least time the card could take to
+    move ``nbytes`` and do ``ops`` f32 operations at its published peaks."""
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = ops / F32_OPS_PER_S * 1e3
+    return (t_b, 'bytes') if t_b >= t_o else (t_o, 'operations')
+
+
 def time_ms(fn, reps=50):
     import torch
     for _ in range(3):
@@ -367,9 +678,46 @@ def time_ms(fn, reps=50):
     return a.elapsed_time(b) / reps
 
 
-def phase_times(cts, ts, dev):
-    """K1 and K3 against their plain versions at 4096 x 59, CUDA events,
-    in turns plain, kernel, kernel, plain (phase 5)."""
+def device_ms(fn, reps=20):
+    """Device time per call of ``fn``: the kernels' time summed over a
+    ``torch.profiler`` (CUPTI) window of ``reps`` calls, host gaps
+    excluded; None if the profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, 'device_time_total', None)
+             or getattr(e, 'cuda_time_total', 0) for e in prof.key_averages())
+    return us / reps / 1e3 if us > 0 else None
+
+
+def timed_pair(kern, plain):
+    """Kernel and plain version: CUDA events around 50 back-to-back calls,
+    in turns plain, kernel, kernel, plain (``call_ms``: what a call costs,
+    the wrapper's host work included), and the device time of each from the
+    profiler.  ``ms`` is the kernel's device time where the profiler gives
+    one."""
+    p1, k1, k2, p2 = (time_ms(plain), time_ms(kern), time_ms(kern),
+                      time_ms(plain))
+    k_dev, p_dev = device_ms(kern), device_ms(plain)
+    return dict(ms=k_dev if k_dev is not None else min(k1, k2),
+                plain_ms=min(p1, p2), call_ms=min(k1, k2),
+                device_ms=k_dev, plain_device_ms=p_dev,
+                runs_ms=[p1, k1, k2, p2])
+
+
+def phase_times(cts, ts, ccv, pc, dev, probe):
+    """Every kernel against its plain version, CUDA events (phase 5): K1 and
+    K3 at 4096 x 59, K4 at the convective ensemble's 512 x 149 and at
+    4096 x 59, K7 on the probe's inputs beside ``torch.div``.  Each entry
+    carries its bound: the larger of the bytes the function must move (each
+    input read once, each output written once) over the card's memory rate
+    and its f32 operations (a division or an exp counted as one) over the
+    card's f32 rate."""
     import torch
     gen = torch.Generator().manual_seed(5)
     n, b = 59, HEADLINE['members']
@@ -377,22 +725,43 @@ def phase_times(cts, ts, dev):
     r = lambda *s: torch.rand(*s, generator=gen).to(dev)  # noqa: E731
     usw, dsw, prev = 100 * r(n + 1, b), 300 * r(n + 1, b), r(n + 1, b)
     L = ts.topk_depth(n + 1, 95)
-    saved = dict(cts.launch_counts)
-    pairs = {
-        'lw_walk': (lambda: cts.lw_walk(T, dtau, toa),
-                    lambda: ts.lw_flux_sequential(T, dtau, toa)),
-        'net_stats_walk': (
+    res = {
+        'lw_walk': dict(timed_pair(
+            lambda: cts.lw_walk(T, dtau, toa),
+            lambda: ts.lw_flux_sequential(T, dtau, toa)), n=n, b=b),
+        'net_stats_walk': dict(timed_pair(
             lambda: cts.net_stats_walk(T, dtau, usw, dsw, toa, prev, L),
             lambda: ts.net_stats_sequential(T, dtau, usw, dsw, toa, prev, L)),
+            n=n, b=b),
     }
-    res = {}
-    for name, (kern, plain) in pairs.items():
-        p1, k1, k2, p2 = (time_ms(plain), time_ms(kern), time_ms(kern),
-                          time_ms(plain))
-        res[name] = dict(ms=min(k1, k2), plain_ms=min(p1, p2),
-                         runs_ms=[p1, k1, k2, p2])
-    cts.launch_counts.update(saved)     # timing launches are not main path
-    emit('kernel_times', n=n, b=b, **res)
+    # per level: T^2, T^4, sigma*, 2 exp, 2 x (mul, sub, mul, add)
+    walk_ops = 13 * n * b
+    res['lw_walk']['bound'] = bound(
+        4 * (2 * n * b + b + 2 * (n + 1) * b), walk_ops)
+    # + per interface: the net (3), |net - prev| (2), the L-deep insertion
+    # (2 per slot), |net| and its max (2)
+    res['net_stats_walk']['bound'] = bound(
+        4 * (2 * n * b + 3 * (n + 1) * b + b + (n + 1) * b + 4 * b),
+        walk_ops + (n + 1) * b * (7 + 2 * L))
+    gen = torch.Generator().manual_seed(6)
+    for b_, n_ in ISO_SHAPES[:2]:
+        SV, SW = iso_inputs(gen, b_, n_, torch.float32, dev)
+        res[f'iso_fit_{b_}x{n_}'] = dict(timed_pair(
+            lambda: ccv.iso_fit(SV, SW), lambda: pc.iso_fit_plain(SV, SW)),
+            b=b_, n=n_,
+            # per (s <= t) pair: two subtractions, the division, min, max
+            bound=bound(4 * ((n_ + 1) * b_ + (n_ + 1) + n_ * b_),
+                        5 * b_ * n_ * (n_ + 1) // 2))
+    a, bb = probe['a'], probe['b']
+    res['div_probe'] = dict(
+        timed_pair(lambda: ccv.div_probe(a, bb),
+                   lambda: pc.div_probe_plain(a, bb)),
+        library_ms=time_ms(lambda: torch.div(a, bb)),
+        library_device_ms=device_ms(lambda: torch.div(a, bb)),
+        shape=list(a.shape),
+        # three divisions, one product, one |b| per element
+        bound=bound(4 * 5 * a.numel(), 5 * a.numel()))
+    emit('kernel_times', **res)
     return res
 
 
@@ -415,8 +784,11 @@ def main():
     from climatemodel_tpu_torch.models import ensemble as ens
     from climatemodel_tpu_torch.models.grey import GreyGas
     from climatemodel_tpu_torch.ops import _cuda_build
+    from climatemodel_tpu_torch.ops import convection as pc
+    from climatemodel_tpu_torch.ops import cuda_convection as ccv
     from climatemodel_tpu_torch.ops import cuda_two_stream as cts
     from climatemodel_tpu_torch.ops import two_stream as ts
+    mods = (cts, ccv)
 
     dev = torch.device('cuda', 0)
     smi = nvidia_smi_line()
@@ -426,40 +798,69 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    # one nvcc per source, and the PTX of convection.cu, all at once
     t0 = time.perf_counter()
-    lib, built = _cuda_build.load('two_stream')
+    sources = ('two_stream', 'convection')
+    with ThreadPoolExecutor(max_workers=len(sources) + 1) as pool:
+        futures = {name: pool.submit(_cuda_build.build, name)
+                   for name in sources}
+        ptx_future = pool.submit(_cuda_build.ptx, 'convection')
+        built = {name: f.result() for name, f in futures.items()}
+        ptx_text = ptx_future.result()
     cts.library()
-    regs = [int(w.split()[1]) for line in built.log.splitlines()
-            for w in [line[line.find('Used'):]] if 'Used' in line]
-    spills = [line.strip() for line in built.log.splitlines()
-              if 'spill' in line and not ' 0 bytes spill stores, 0 bytes '
-              'spill loads' in line]
-    emit('build', seconds=time.perf_counter() - t0, nvcc_seconds=built.seconds,
-         library=str(built.path.relative_to(ROOT)),
-         max_registers=max(regs) if regs else None, nonzero_spills=spills[:4],
-         max_topk=cts.max_topk())
+    ccv.library()
+    for name, res in built.items():
+        log = res.log.splitlines()
+        regs = [int(w.split()[1]) for line in log
+                for w in [line[line.find('Used'):]] if 'Used' in line]
+        spills = [line.strip() for line in log if 'spill' in line and
+                  ' 0 bytes spill stores, 0 bytes spill loads' not in line]
+        emit('build', source=f'ops/csrc/{name}.cu',
+             seconds_all=time.perf_counter() - t0, nvcc_seconds=res.seconds,
+             library=str(res.path.relative_to(ROOT)),
+             max_registers=max(regs) if regs else None,
+             nonzero_spills=spills[:4])
+    emit('limits', max_topk=cts.max_topk(), iso_fit_max_levels=ccv.max_levels())
 
     at_main = phase_kernels(cts, ts, dev)
-    main_res = phase_main(ens, GreyGas, p_surface_earth, cts, dev)
+    at_main.update(phase_conv_kernels(ccv, pc, dev))
+    probe = phase_div_probe(pc, mods, dev, ptx_text)
+    main_res = phase_main(ens, GreyGas, p_surface_earth, mods, dev)
     launches = main_res[5]
+    conv_res, conv_state = phase_conv_main(ens, GreyGas, p_surface_earth,
+                                           mods, dev)
     phase_card_vs_cpu(ens, GreyGas, p_surface_earth, main_res, dev)
-    times = phase_times(cts, ts, dev)
+    phase_conv_card_vs_cpu(ens, conv_state, dev)
+    phase_conv_profile(ens, conv_state)
+    times = phase_times(cts, ts, ccv, pc, dev, probe)
 
-    src = 'climatemodel_tpu_torch/ops/csrc/two_stream.cu'
+    def entry(name, source, replaces, n_launch, err, t, library_ms=None):
+        return {'name': name, 'route': 'cuda',
+                'source': f'climatemodel_tpu_torch/ops/csrc/{source}',
+                'replaces': replaces, 'launches': n_launch,
+                'max_abs_err': err, 'ms': t['ms'], 'plain_ms': t['plain_ms'],
+                'bound_ms': t['bound'][0], 'bound_by': t['bound'][1],
+                'library_ms': library_ms}
+    iso_main = f'iso_fit_{ISO_SHAPES[0][0]}x{ISO_SHAPES[0][1]}'
     print(json.dumps({'kernels': [
-        {'name': 'lw_walk', 'route': 'cuda', 'source': src,
-         'replaces': 'climatemodel_tpu/ops/pallas_two_stream.py:120 '
-                     '(_lw_kernel, K1) and :38 (_lw_kernel_packed, K2)',
-         'launches': launches['lw_walk'], 'max_abs_err': at_main['lw_walk'],
-         'ms': times['lw_walk']['ms'],
-         'plain_ms': times['lw_walk']['plain_ms']},
-        {'name': 'net_stats_walk', 'route': 'cuda', 'source': src,
-         'replaces': 'climatemodel_tpu/ops/pallas_two_stream.py:64 '
-                     '(_net_stats_kernel, K3)',
-         'launches': launches['net_stats_walk'],
-         'max_abs_err': at_main['net_stats_walk'],
-         'ms': times['net_stats_walk']['ms'],
-         'plain_ms': times['net_stats_walk']['plain_ms']},
+        entry('lw_walk', 'two_stream.cu',
+              'climatemodel_tpu/ops/pallas_two_stream.py:120 (_lw_kernel, '
+              'K1) and :38 (_lw_kernel_packed, K2)',
+              launches['lw_walk'], at_main['lw_walk'], times['lw_walk']),
+        entry('net_stats_walk', 'two_stream.cu',
+              'climatemodel_tpu/ops/pallas_two_stream.py:64 '
+              '(_net_stats_kernel, K3)', launches['net_stats_walk'],
+              at_main['net_stats_walk'], times['net_stats_walk']),
+        entry('iso_fit', 'convection.cu',
+              'climatemodel_tpu/ops/pallas_isotonic.py:41 (_iso_kernel, K4)',
+              conv_res['isotonic']['launches']['iso_fit'],
+              at_main['iso_fit'], times[iso_main]),
+        entry('div_probe', 'convection.cu',
+              'tools/probe_mosaic_div.py:28 (_kernel of via_pallas, K7)',
+              probe['launches'], probe['err'], times['div_probe'],
+              library_ms=(times['div_probe']['library_device_ms']
+                          if times['div_probe']['device_ms'] is not None
+                          else times['div_probe']['library_ms'])),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {

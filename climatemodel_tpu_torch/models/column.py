@@ -12,9 +12,9 @@ computes ``stop = eqb | failed | nan | timed_out | (i >= max_steps)`` and
 every update goes through ``torch.where(stop, old, new)``, so a stopped
 member is frozen exactly like a vmapped while-loop's select freezes it.
 
-Ported: the radiative march with per-step checks.  Not yet ported (ROADMAP
-Queue 1): convective adjustment, ``check_every > 1``, ``dip_memory``,
-``debug``, ``run_chunked_march`` and ``evolve_snapshots``.
+Ported: the radiative(-convective) march with per-step checks.  Not yet
+ported (ROADMAP Queue 1): ``check_every > 1``, ``dip_memory``, ``debug``,
+``run_chunked_march`` and ``evolve_snapshots``.
 """
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..constants import g, c_p_dry, sigma, SECONDS_PER_DAY, SECONDS_PER_YEAR
+from ..ops.convection import convective_adjustment
 from ..ops.two_stream import percentile_topk_params
 
 # The march loop asks the device whether any member is still running once
@@ -257,7 +258,9 @@ def _percentile_from_stats(top1, top_hi, top_lo, n, pct):
 def update_temp(state: ColumnState, net_flux, p_interface,
                 convective_adjust: bool = False,
                 net_flux_thresh: float = 1e-7, net_flux_percentile: float = 95,
-                delta_stats=None):
+                delta_stats=None, p_centre_col=None,
+                conv_thresh: float = 1e-5, conv_t_multiplier: float = 5.0,
+                conv_method: str = 'reference'):
     """One finite-volume temperature update with adaptive dt, per member.
 
     :param net_flux: [B, nz, ny] freshly computed net flux.
@@ -265,11 +268,15 @@ def update_temp(state: ColumnState, net_flux, p_interface,
     :param delta_stats: optional (top1, top_hi, top_lo) [B] order statistics
         of ``|net_flux - state.net_flux|`` precomputed by the fused
         flux+stats operator (ops/two_stream.grey_net_with_stats).
+    :param p_centre_col: [nz-1] cell-centre pressures (surface first), for
+        the convective adjustment.
+    :param conv_thresh: |T change| above which an allowed level counts as
+        convective (base.py:190-192).
+    :param conv_t_multiplier: dt factor when the controlling level is
+        convective (base.py:182-183).
+    :param conv_method: 'reference' or 'isotonic' (ops/convection.py).
     :return: (new_state, delta_net_flux [B])
     """
-    if convective_adjust:
-        raise NotImplementedError(
-            'convective adjustment is not ported yet (ROADMAP Queue 1 item 7)')
     T = state.T
     tsi = state.tsi
     B = T.shape[0]
@@ -295,8 +302,24 @@ def update_temp(state: ColumnState, net_flux, p_interface,
     tsi = where_members(any_allowed, update_time_step(tsi, tend_flat, allowed),
                         tsi)
     dt = tsi.dt
+    if convective_adjust:
+        # convective-region speed-up (base.py:182-183).  max_tend_ind is -1
+        # for a member that has no allowed level and kept a reset controller;
+        # the JAX package's gather wraps it to the last level and masks the
+        # result with any_allowed, so any in-range index does here.
+        ind = tsi.max_tend_ind.long().clamp(min=0)[:, None]
+        in_conv = torch.gather(tsi.convective, 1, ind)[:, 0]
+        dt = torch.where(any_allowed & in_conv, dt * conv_t_multiplier, dt)
+        tsi = tsi.replace(dt=dt)
     T_new = torch.where(allowed.reshape(T.shape),
                         T + dt[:, None, None] * T_tendency, T)
+    if convective_adjust:
+        T_adj = convective_adjustment(p_centre_col, T_new, descending=True,
+                                      method=conv_method)
+        conv_mask = allowed & ((T_adj - T_new).abs().reshape(B, -1)
+                               > conv_thresh)             # base.py:190-192
+        tsi = tsi.replace(convective=conv_mask)
+        T_new = T_adj
     new_state = state.replace(T=T_new, net_flux=net_flux, t=state.t + dt,
                               tsi=tsi)
     return new_state, delta_net_flux
@@ -349,12 +372,14 @@ def _exit_flags(st, net, delta, ft, t0, t_end, use_delta_exit, absmax=None):
 
 def march_step(st: ColumnState, ft, i, t0, net_flux_fn, p_interface, *,
                t_end, net_flux_thresh=1e-7, net_flux_percentile=95,
-               use_delta_exit=True, net_stats_fn=None):
+               use_delta_exit=True, net_stats_fn=None, **conv_kw):
     """One march step of every member, unmasked: the port's counterpart of
     the body of the JAX package's while-loop (column.py:578-633).
 
     :param ft, i, t0: [B] exit threshold, step count before this step, and
         simulated time at the start of the march.
+    :param conv_kw: ``convective_adjust``, ``p_centre_col``, ``conv_thresh``,
+        ``conv_t_multiplier`` and ``conv_method`` of :func:`update_temp`.
     :return: (state, ft, delta, eqb, failed, nan, timed_out) after the step.
     """
     if net_stats_fn is not None:
@@ -366,7 +391,7 @@ def march_step(st: ColumnState, ft, i, t0, net_flux_fn, p_interface, *,
     st, delta = update_temp(st, net, p_interface,
                             net_flux_thresh=net_flux_thresh,
                             net_flux_percentile=net_flux_percentile,
-                            delta_stats=stats)
+                            delta_stats=stats, **conv_kw)
     # the second iteration tightens the threshold (base.py:315-317)
     ft = torch.where(i == 1, torch.minimum(ft, 0.99 * delta), ft)
     flags = _exit_flags(st, net, delta, ft, t0, t_end, use_delta_exit,
@@ -377,9 +402,12 @@ def march_step(st: ColumnState, ft, i, t0, net_flux_fn, p_interface, *,
 def evolve_to_equilibrium(state: ColumnState, net_flux_fn: Callable,
                           p_interface, p_centre_col=None, *,
                           flux_thresh=1e-3, convective_adjust: bool = False,
-                          t_end: float = 4.0, net_flux_thresh: float = 1e-7,
+                          t_end: float = 4.0, conv_thresh: float = 1e-5,
+                          conv_t_multiplier: float = 5.0,
+                          net_flux_thresh: float = 1e-7,
                           net_flux_percentile: float = 95,
                           max_steps: int = 500_000, use_delta_exit: bool = True,
+                          conv_method: str = 'reference',
                           i0=0, final_reset: bool = True, check_every: int = 1,
                           dip_memory: bool = False, debug: bool = False,
                           net_stats_fn: Callable | None = None):
@@ -392,9 +420,12 @@ def evolve_to_equilibrium(state: ColumnState, net_flux_fn: Callable,
     (equilibrium, negative T, non-finite values, t_end, or ``max_steps``).
 
     :param net_flux_fn: T [B, nz-1, ny] -> net flux [B, nz, ny].
-    :param p_centre_col: [nz-1] cell-centre pressures, for convective
-        adjustment once it is ported; unused by the radiative march.
+    :param p_centre_col: [nz-1] cell-centre pressures (surface first), for
+        the convective adjustment; unused by the radiative march.
     :param flux_thresh: float or [B] exit threshold.
+    :param convective_adjust: adjust every step to convective stability
+        (ops/convection.py) with ``conv_method`` 'reference' or 'isotonic';
+        ``conv_thresh`` and ``conv_t_multiplier`` as in :func:`update_temp`.
     :param t_end: cap in simulated years (base.py:322).
     :param i0: starting step count (float or [B]).
     :param final_reset: reset the time-step bookkeeping on exit
@@ -405,9 +436,6 @@ def evolve_to_equilibrium(state: ColumnState, net_flux_fn: Callable,
         the in-march percentile/flux-balance reductions.
     :return: (final ColumnState, EquilibriumInfo)
     """
-    if convective_adjust:
-        raise NotImplementedError(
-            'convective adjustment is not ported yet (ROADMAP Queue 1 item 7)')
     if check_every != 1 or dip_memory or debug:
         raise NotImplementedError(
             'check_every > 1, dip_memory and debug are not ported yet '
@@ -426,6 +454,10 @@ def evolve_to_equilibrium(state: ColumnState, net_flux_fn: Callable,
     i = per_member(i0, torch.int32)
     no = torch.zeros((B,), dtype=torch.bool, device=device)
     eqb, failed, nan, tout = no, no, no, no
+    conv_kw = (dict(convective_adjust=True, p_centre_col=p_centre_col,
+                    conv_thresh=conv_thresh,
+                    conv_t_multiplier=conv_t_multiplier,
+                    conv_method=conv_method) if convective_adjust else {})
 
     it = 0
     while True:
@@ -439,7 +471,7 @@ def evolve_to_equilibrium(state: ColumnState, net_flux_fn: Callable,
                          t_end=t_end, net_flux_thresh=net_flux_thresh,
                          net_flux_percentile=net_flux_percentile,
                          use_delta_exit=use_delta_exit,
-                         net_stats_fn=net_stats_fn)
+                         net_stats_fn=net_stats_fn, **conv_kw)
         st, ft, delta, eqb, failed, nan, tout = (
             where_members(stop, old, upd) for old, upd in
             zip((st, ft, delta, eqb, failed, nan, tout), new))

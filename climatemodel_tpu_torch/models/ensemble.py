@@ -83,21 +83,26 @@ def grey_march_fns(forcings: GreyForcing, net_shape, fused_stats=True,
 
 def grey_evolve_ensemble(states: ColumnState, forcings: GreyForcing,
                          p_interface, p_centre_col, flux_thresh,
-                         convective_adjust=False, t_end=4.0,
-                         net_flux_thresh=1e-7, net_flux_percentile=95,
-                         max_steps=500_000, use_delta_exit=True,
+                         convective_adjust=False, t_end=4.0, conv_thresh=1e-5,
+                         conv_t_multiplier=5.0, net_flux_thresh=1e-7,
+                         net_flux_percentile=95, max_steps=500_000,
+                         use_delta_exit=True, conv_method='reference',
                          check_every=1, dip_memory=False, fused_stats=True):
     """March every member of (states, forcings) to equilibrium; the
     pressure grid is shared.  ``fused_stats`` picks the fused net+stats
-    step (default) or the split one (see :func:`grey_march_fns`)."""
+    step (default) or the split one (see :func:`grey_march_fns`);
+    ``convective_adjust`` adds the convective adjustment of every step with
+    ``conv_method`` 'reference' or 'isotonic' (ops/convection.py)."""
     net_fn, stats_fn = grey_march_fns(forcings, states.net_flux.shape,
                                       fused_stats, net_flux_percentile)
     return column.evolve_to_equilibrium(
         states, net_fn, p_interface, p_centre_col, flux_thresh=flux_thresh,
         convective_adjust=convective_adjust, t_end=t_end,
+        conv_thresh=conv_thresh, conv_t_multiplier=conv_t_multiplier,
         net_flux_thresh=net_flux_thresh,
         net_flux_percentile=net_flux_percentile, max_steps=max_steps,
-        use_delta_exit=use_delta_exit, check_every=check_every,
+        use_delta_exit=use_delta_exit, conv_method=conv_method,
+        check_every=check_every,
         dip_memory=dip_memory, net_stats_fn=stats_fn)
 
 

@@ -9,11 +9,12 @@ of one for a single world, so ``GreyGas`` and the ensemble march share
 grey model: level index 0 = surface, nz-1 = top of atmosphere.
 
 Ported: the constructor, grids and ``update_grid``, the forcing, the state
-views, ``evolve_to_equilibrium(save=False)``, ``equilibrium_sol`` and the
-closed-form :class:`GreySwEquilibrium`.  Not yet ported (ROADMAP Queue 1):
-``save=True`` and snapshots, ``take_time_step``, ``bake_forcing``,
-``chunk_steps``, ``debug``, ``check_every``/``dip_memory``, ``plot_eqb``
-and convective adjustment; each raises ``NotImplementedError``.
+views, ``evolve_to_equilibrium(save=False)`` with or without convective
+adjustment, ``equilibrium_sol`` and the closed-form
+:class:`GreySwEquilibrium`.  Not yet ported (ROADMAP Queue 1): ``save=True``
+and snapshots, ``take_time_step``, ``bake_forcing``, ``chunk_steps``,
+``debug``, ``check_every``/``dip_memory`` and ``plot_eqb``; each raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ import torch
 
 from ..constants import F_sun, p_surface_earth, p_toa_earth, sigma
 from ..ops import optical_depth as od
+from ..ops.convection import convective_adjustment
 from ..ops.two_stream import lw_flux, sw_flux
 from ..utils import grids
 from . import column
@@ -80,13 +82,14 @@ def _not_ported(what):
 class GreyGas:
     """User-facing grey-gas column model mirroring the reference state API
     (grey.py:17-106): same constructor vocabulary, same attribute names,
-    plus the ``device`` the state and forcing live on."""
+    plus the ``device`` the state and forcing live on — the card unless the
+    caller names another (``device='cpu'``)."""
 
     def __init__(self, nz, ny, tau_lw_func, tau_lw_func_args, tau_sw_func=None,
                  tau_sw_func_args=None, F_stellar_constant=F_sun, albedo=0.3,
                  temp_change=1.0, delta_temp_change=0.01,
                  p_surface=p_surface_earth, p_toa=p_toa_earth,
-                 dtype=torch.float32, device='cpu'):
+                 dtype=torch.float32, device='cuda'):
         self.ny = int(ny)
         self.p_surface = float(p_surface)
         self.p_toa = float(p_toa)
@@ -259,14 +262,22 @@ class GreyGas:
 
     def evolve_to_equilibrium(self, data_dict=None, flux_thresh=1e-3,
                               T_initial=None, convective_adjust=False, save=True,
-                              t_end=4.0, verbose=False, chunk_steps=None,
-                              check_every=1, dip_memory=False, debug=False,
+                              t_end=4.0, conv_thresh=1e-5, conv_t_multiplier=5,
+                              verbose=False, conv_method='reference',
+                              chunk_steps=None, check_every=1,
+                              dip_memory=False, debug=False,
                               bake_forcing=False) -> dict:
         """March to equilibrium (base.py:266-335), ``save=False`` only.
 
         data_dict=None restarts the clock (base.py:301-306), so every fresh
         call gets the t=0 forced first step.  Raises like the JAX package on
         a non-finite value, a negative temperature, or the step cap.
+
+        :param convective_adjust: adjust to convective stability every step
+            (radiative-convective equilibrium), with ``conv_method``
+            'reference' (faithful group blend) or 'isotonic' (the iso_fit
+            kernel on the card); ``conv_thresh`` and ``conv_t_multiplier``
+            as in ``column.update_temp``.
         """
         if save:
             raise _not_ported('evolve_to_equilibrium(save=True) (snapshots)')
@@ -288,8 +299,9 @@ class GreyGas:
         self._state, info = column.evolve_to_equilibrium(
             self._state, lambda T: grey_net_flux(T, forcing), p_int, p_c,
             flux_thresh=flux_thresh, convective_adjust=convective_adjust,
-            t_end=float(t_end), check_every=check_every,
-            dip_memory=dip_memory)
+            t_end=float(t_end), conv_thresh=conv_thresh,
+            conv_t_multiplier=conv_t_multiplier, conv_method=conv_method,
+            check_every=check_every, dip_memory=dip_memory)
         # flux views at the equilibrium temperature
         self._fluxes = grey_fluxes(self._state.T, forcing)
         self._equilibrium_info = column.EquilibriumInfo(
@@ -317,12 +329,9 @@ class GreyGas:
         Returns (up_lw, down_lw, T_eqb, up_sw, down_sw, correct_solution), where
         correct_solution is False if the short-wave absorber had to be ignored
         (only exponential lw+sw with integer alpha ratio < 10 admits the closed
-        form, grey.py:406-428).
+        form, grey.py:406-428).  ``convective_adjust`` passes T_eqb through
+        the reference-method adjustment in float64 on the world's device.
         """
-        if convective_adjust:
-            raise NotImplementedError(
-                'convective adjustment is not ported yet (ROADMAP Queue 1 '
-                'item 7)')
         if self.sw_tau_is_zero:
             correct = True
         elif self._lw.name == 'exponential' and self._sw.name == 'exponential':
@@ -361,6 +370,11 @@ class GreyGas:
             up_sw = np.ones_like(up_lw) * self.albedo_mod * \
                 self.F_stellar_constant / 4
             down_sw = np.ones_like(up_lw) * self.F_stellar_constant / 4
+        if convective_adjust:
+            f64 = dict(dtype=torch.float64, device=self.device)
+            T_eqb = convective_adjustment(
+                torch.tensor(self.p[:, 0], **f64),
+                torch.tensor(np.asarray(T_eqb), **f64)).cpu().numpy()
         return up_lw, down_lw, T_eqb, up_sw, down_sw, correct
 
     def plot_eqb(self, *args, **kwargs):

@@ -81,6 +81,29 @@ def build(name: str) -> BuildResult:
                        proc.stdout + proc.stderr)
 
 
+def ptx(name: str) -> str:
+    """The PTX that ``nvcc`` emits for ``csrc/<name>.cu`` with the build's
+    code-generation flags, to read which instructions were chosen (e.g. the
+    f32 division: ``div.rn.f32`` or an approximate form)."""
+    src = CSRC / f'{name}.cu'
+    flags = ['-arch=compute_90a'] + [
+        f for f in NVCC_FLAGS if f not in (
+            '-gencode', 'arch=compute_90a,code=sm_90a', '-shared',
+            '-Xcompiler', '-fPIC', '-Xptxas', '-v')]
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix='.ptx', dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run([find_nvcc(), *flags, '-ptx', '-o', tmp,
+                               str(src)], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f'nvcc -ptx failed on {src.name} '
+                               f'(exit {proc.returncode}):\n{proc.stderr}')
+        return Path(tmp).read_text()
+    finally:
+        os.unlink(tmp)
+
+
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> tuple[ctypes.CDLL, BuildResult]:
     """Build (if needed) and load ``csrc/<name>.cu``; one load per process."""

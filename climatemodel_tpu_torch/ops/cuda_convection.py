@@ -1,0 +1,107 @@
+"""Wrappers of the convective-adjustment CUDA kernels
+(``csrc/convection.cu``).
+
+* :func:`iso_fit` replaces ``isotonic_increasing_lanes`` /
+  ``_iso_kernel`` (climatemodel_tpu/ops/pallas_isotonic.py, K4): the
+  min-max step of the isotonic fit, from prefix sums computed by the
+  caller (``convection._iso_rows``), as the Pallas wrapper computes them
+  outside ``pallas_call``.
+* :func:`div_probe` replaces ``via_pallas`` (tools/probe_mosaic_div.py, K7).
+
+Each wrapper checks device, dtype, shape and contiguity, allocates its
+outputs with ``torch.empty``, launches on the current stream, raises if the
+launch failed, and adds one to its entry of :data:`launch_counts`.  They
+never compute on the CPU: the plain versions are in ``ops/convection.py``,
+whose dispatchers pick by device.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import _cuda_build
+from .cuda_two_stream import _check, _raise_on
+
+#: launches of each kernel since the last :func:`reset_launch_counts`
+launch_counts = {'iso_fit': 0, 'div_probe': 0}
+
+_SUFFIX = {torch.float32: 'f32', torch.float64: 'f64'}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def reset_launch_counts():
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use) with its argtypes."""
+    lib, _res = _cuda_build.load('convection')
+    for s in _SUFFIX.values():
+        fn = getattr(lib, f'iso_fit_{s}')
+        fn.argtypes = [_P, _P, _P, _I, _I, _P]
+        fn.restype = _I
+    lib.div_probe_f32.argtypes = [_P] * 5 + [_I, _P]
+    lib.div_probe_f32.restype = _I
+    lib.iso_fit_max_levels.argtypes = []
+    lib.iso_fit_max_levels.restype = _I
+    return lib
+
+
+def max_levels() -> int:
+    """Largest n the iso_fit kernel holds in registers."""
+    return int(library().iso_fit_max_levels())
+
+
+def iso_fit(SV, SW):
+    """The min-max isotonic step of K4 with the batch on the LAST axis.
+
+    :param SV: [n+1, b] per-member prefix sums of v * theta (row 0 zero).
+    :param SW: [n+1] shared prefix sums of v (row 0 zero).
+    :return: [n, b] fits, as ``convection.iso_fit_plain``.
+    """
+    if SV.dtype not in _SUFFIX:
+        raise ValueError(f'iso_fit: unsupported dtype {SV.dtype}')
+    if SV.ndim != 2 or SV.shape[0] < 2:
+        raise ValueError(f'iso_fit: SV must be [n+1, b] with n >= 1, got '
+                         f'{tuple(SV.shape)}')
+    n1, b = SV.shape
+    _check('SV', SV, (n1, b), SV)
+    _check('SW', SW, (n1,), SV)
+    lib = library()
+    if n1 - 1 > max_levels():
+        raise ValueError(f'iso_fit: n={n1 - 1} levels exceed the kernel\'s '
+                         f'register limit of {max_levels()} levels')
+    out = torch.empty((n1 - 1, b), dtype=SV.dtype, device=SV.device)
+    if b == 0:
+        return out
+    with torch.cuda.device(SV.device):
+        stream = torch.cuda.current_stream(SV.device).cuda_stream
+        err = getattr(lib, f'iso_fit_{_SUFFIX[SV.dtype]}')(
+            SV.data_ptr(), SW.data_ptr(), out.data_ptr(), n1 - 1, b, stream)
+    _raise_on(err, 'iso_fit')
+    launch_counts['iso_fit'] += 1
+    return out
+
+
+def div_probe(a, b):
+    """K7: (a / b, (C * a) / b, a / |b|) of two f32 tensors of one shape."""
+    if a.dtype != torch.float32:
+        raise ValueError(f'div_probe: needs float32, got {a.dtype}')
+    _check('a', a, a.shape, a)
+    _check('b', b, a.shape, a)
+    outs = tuple(torch.empty_like(a) for _ in range(3))
+    if a.numel() == 0:
+        return outs
+    lib = library()
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = lib.div_probe_f32(a.data_ptr(), b.data_ptr(),
+                                *(o.data_ptr() for o in outs), a.numel(),
+                                stream)
+    _raise_on(err, 'div_probe')
+    launch_counts['div_probe'] += 1
+    return outs

@@ -204,7 +204,8 @@ def _sequential_net_flux(T, f):
     return up - down + up_sw - down_sw
 
 
-def _jax_step_fn(p_int, p_c, *, t_end, max_steps, fused, sequential=False):
+def _jax_step_fn(p_int, p_c, *, t_end, max_steps, fused, sequential=False,
+                 convective_adjust=False, conv_method='reference'):
     """jit(vmap) of one JAX march step with the vmapped while-loop's
     freeze, built exactly as climatemodel_tpu's ensemble (fused) or
     GreyGas (unfused) march builds its body; ``sequential`` swaps the flux
@@ -224,10 +225,10 @@ def _jax_step_fn(p_int, p_c, *, t_end, max_steps, fused, sequential=False):
                 T, f.dtau, up_toa, up_sw, down_sw, prev, pct=95)
         body = jcol._march_body(
             lambda T: net_flux(T, f), p_int, p_c, t0,
-            convective_adjust=False, t_end=t_end, conv_thresh=1e-5,
-            conv_t_multiplier=5.0, net_flux_thresh=1e-7,
+            convective_adjust=convective_adjust, t_end=t_end,
+            conv_thresh=1e-5, conv_t_multiplier=5.0, net_flux_thresh=1e-7,
             net_flux_percentile=95, p_descending=True, use_delta_exit=True,
-            conv_method='reference', net_stats_fn=stats_fn)
+            conv_method=conv_method, net_stats_fn=stats_fn)
         _st, _ft, _d, i, eqb, failed, nan, tout = carry
         go = ~eqb & ~tout & ~failed & ~nan & (i < max_steps)
         new = body(carry)
@@ -237,7 +238,8 @@ def _jax_step_fn(p_int, p_c, *, t_end, max_steps, fused, sequential=False):
 
 
 def lockstep_march(jstates, jforcings, p_interface, p_centre, flux_thresh, *,
-                   max_steps, t_end=4.0, fused=True, sequential=False):
+                   max_steps, t_end=4.0, fused=True, sequential=False,
+                   convective_adjust=False, conv_method='reference'):
     """March JAX's batched states step by step; before every step hand the
     same carry to the port's ``march_step``.  Returns (JAX final carry,
     records) where records lists, per step, the members that stepped and the
@@ -250,7 +252,9 @@ def lockstep_march(jstates, jforcings, p_interface, p_centre, flux_thresh, *,
     step = _jax_step_fn(jnp.asarray(p_interface, dt_j),
                         jnp.asarray(p_centre, dt_j), t_end=t_end,
                         max_steps=max_steps, fused=fused,
-                        sequential=sequential)
+                        sequential=sequential,
+                        convective_adjust=convective_adjust,
+                        conv_method=conv_method)
     B = jstates.T.shape[0]
     f = lambda v, d=dt_j: jnp.full((B,), v, d)  # noqa: E731
     carry = (jstates, f(flux_thresh), f(1e6), f(0, jnp.int32),
@@ -262,6 +266,9 @@ def lockstep_march(jstates, jforcings, p_interface, p_centre, flux_thresh, *,
     net_fn, stats_fn = grey_march_fns(fo, (B,) + jstates.net_flux.shape[1:],
                                       fused_stats=fused)
     t0_p = torch.tensor(np.asarray(t0))
+    conv_kw = dict(convective_adjust=True, conv_method=conv_method,
+                   p_centre_col=torch.from_numpy(np.asarray(p_centre)).to(dt_p)
+                   ) if convective_adjust else {}
     records = []
     while True:
         new, go = step(carry, jforcings, t0)
@@ -273,7 +280,7 @@ def lockstep_march(jstates, jforcings, p_interface, p_centre, flux_thresh, *,
                                                dtype=dt_p)
         out = pcol.march_step(
             st_p, torch.tensor(host[1]), torch.tensor(host[3]), t0_p,
-            net_fn, p_int, t_end=t_end, net_stats_fn=stats_fn)
+            net_fn, p_int, t_end=t_end, net_stats_fn=stats_fn, **conv_kw)
         st_j, ft_j, delta_j, _i, *flags_j = jax.device_get(new)
         st_q, ft_q, delta_q, *flags_q = out
         rel = lambda a, b: np.abs(a - b) / np.maximum(  # noqa: E731
@@ -287,6 +294,8 @@ def lockstep_march(jstates, jforcings, p_interface, p_centre, flux_thresh, *,
             flags_same=np.all([q.numpy() == j for q, j in
                                zip(flags_q, flags_j)], axis=0),
             ft_same=ft_q.numpy() == ft_j, dt_j=st_j.tsi.dt,
+            conv_flips=(st_q.tsi.convective.numpy()
+                        != st_j.tsi.convective).sum(1),
             abs_tend_j=np.abs(st_j.tsi.max_tend), abs_dt=np.abs(
                 st_q.tsi.dt.numpy() - st_j.tsi.dt),
             abs_t=np.abs(st_q.t.numpy() - st_j.t)))

@@ -1,0 +1,549 @@
+"""Port vs JAX: convective adjustment (``ops/convection.py``), the plain
+versions of its kernels (``iso_fit``, K4; ``div_probe``, K7), and the
+radiative-convective march through column, GreyGas and ensemble.
+
+The operator is compared on the profile families of test_convection.py with
+JAX's own pi and w fed to the port (XLA's and PyTorch's ``pow`` may differ
+by an ulp).  In f64 the two agree within test_convection.py's bound against
+the NumPy oracle.  In f32 the group blend's decisions sit on rounding noise
+(the enthalpy sums are reduced in another order by each library), and the
+isotonic fit carries the rounding of its prefix sums into every level, so
+f32 results are held to stated bounds and to the physics (enthalpy, the
+f64 fixed point) instead of to JAX's bits."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from climatemodel_tpu.cli import grey_world_kwargs
+from climatemodel_tpu.constants import (F_sun, R_specific, c_p_dry, g,
+                                        p_surface_earth, sigma)
+from climatemodel_tpu.models import column as jcol
+from climatemodel_tpu.models import ensemble as jens
+from climatemodel_tpu.models.grey import GreyGas as JGreyGas
+from climatemodel_tpu.models.grey import _grey_evolve, grey_net_flux as jnet
+from climatemodel_tpu.ops import convection as jc
+from climatemodel_tpu.ops import optical_depth as jod
+from climatemodel_tpu_torch.models import column as pcol
+from climatemodel_tpu_torch.models.grey import GreyGas as PGreyGas
+from climatemodel_tpu_torch.models.grey import grey_net_flux as pnet
+from climatemodel_tpu_torch.ops import convection as pc
+from climatemodel_tpu_torch.utils import interop
+from test_convection import _descending_p, _oracle_single, _random_profile
+from test_torch_column import lockstep_march
+
+THERMOSPHERE = grey_world_kwargs('thermosphere')
+DTYPES = {'f64': (jnp.float64, torch.float64),
+          'f32': (jnp.float32, torch.float32)}
+FAMILIES = (['stable', 'enthalpy'] + [f'oracle{s}' for s in range(6)]
+            + ['grey_re', 'spike', 'multi_lat'])
+
+
+def _family(name):
+    """(p [nz] descending, T [nz, ny], delta_T_thresh) of each profile family
+    of test_convection.py: stable (:94), enthalpy-conserving (:105), random
+    seeds vs the oracle (:119), grey RE (:128), large spike (:144),
+    multi-latitude (:157)."""
+    if name == 'stable':
+        p = _descending_p()
+        theta = np.linspace(300, 400, len(p))
+        return p, (theta * (p / p_surface_earth)
+                   ** (R_specific / c_p_dry))[:, None], None
+    if name == 'enthalpy':
+        rng = np.random.default_rng(3)
+        p = _descending_p()
+        T = np.clip(280 + 40 * rng.standard_normal(len(p)).cumsum() / 6,
+                    150, 400)
+        T[-1] = T[-2] + 30
+        return p, T[:, None], 1e9
+    if name.startswith('oracle'):
+        return _descending_p(50), _random_profile(int(name[-1]))[:, None], 1e9
+    if name == 'grey_re':
+        prof = jod.scale_height(p_width=0.22 * p_surface_earth,
+                                tau_surface=4.0)
+        p = np.logspace(np.log10(p_surface_earth), np.log10(20.0), 120)
+        tau = np.asarray(prof.tau(p))
+        F0 = (1 - 0.3) * F_sun / 4
+        return p, (((F0 / (2 * sigma)) * (1 + tau)) ** 0.25)[:, None], None
+    if name == 'spike':
+        p = _descending_p(40)
+        T = np.linspace(300, 250, len(p))
+        T[10] = T[9] + 300.0
+        return p, T[:, None], np.median(T) / 4
+    assert name == 'multi_lat'
+    p = _descending_p(30)
+    rng = np.random.default_rng(7)
+    T = 280 + 10 * rng.standard_normal((30, 6)).cumsum(axis=0) / 3
+    T[-1] = T[-2] + 30
+    return p, T, None
+
+
+def _jax_grid(p):
+    """JAX's pi and w for a descending column, as numpy arrays."""
+    alpha = R_specific * (g / c_p_dry) / g
+    return (np.asarray((p / p_surface_earth) ** alpha),
+            np.asarray(jc._trapz_weights(p)))
+
+
+def _port_rows(T, pi, w, thresh, method):
+    """The port's adjustment of JAX-typed [nz, ny] columns on JAX's grid."""
+    rows = torch.tensor(np.asarray(T).T)
+    th = (pc.median_last(rows) / 4.0 if thresh is None else
+          torch.full((rows.shape[0],), thresh, dtype=rows.dtype))
+    return pc.adjust_rows(rows, torch.tensor(pi), torch.tensor(w), th,
+                          method).T.numpy()
+
+
+def _enthalpy(T, p):
+    return -np.trapezoid(np.asarray(T, np.float64), p, axis=0)
+
+
+# f32 bounds on |port - JAX| in K, per (family, method), with the measured
+# value in the comment.  Where the f32 decisions diverge (two of the random
+# profiles under the group blend, the grey RE profile under isotonic) no
+# pointwise bound against JAX holds; there the test holds both packages to
+# the f64 fixed point instead (F32_CHAOTIC).
+F32_BOUND_K = 0.2         # measured <= 0.122 K (multi_lat, isotonic)
+F32_CHAOTIC = {('oracle1', 'reference'), ('oracle3', 'reference'),
+               ('grey_re', 'isotonic')}
+
+
+@pytest.mark.parametrize('dtype', ['f64', 'f32'])
+@pytest.mark.parametrize('method', ['reference', 'isotonic'])
+@pytest.mark.parametrize('family', FAMILIES)
+def test_operator_matches_jax(family, method, dtype):
+    """JAX's ``convective_adjustment`` and the port's rows operator on the
+    same columns with JAX's pi and w.
+
+    f64: within test_convection.py's oracle bound (assert_allclose atol
+    1e-8, rtol 1e-7; measured <= 3e-8 K, the group blend's enthalpy sums
+    being reduced in another order), and for the oracle profiles the port
+    is held to the NumPy oracle by the same bound.
+
+    f32: within F32_BOUND_K of JAX, enthalpy conserved to 2e-6 relative
+    where no group is skipped; on the F32_CHAOTIC cases, where a decision
+    flips, the port's distance to the f64 fixed point is at most 2x JAX's
+    own plus 25 K (measured: port 22.6 / 25.0 / 6.7 K, JAX 13.6 / 1.7 /
+    5.0 K)."""
+    jd, _ = DTYPES[dtype]
+    p, T, thresh = _family(family)
+    Tj = jnp.asarray(T, jd)
+    out_j = np.asarray(jc.convective_adjustment(jnp.asarray(p, jd), Tj,
+                                                delta_T_thresh=thresh,
+                                                method=method))
+    pi, w = _jax_grid(jnp.asarray(p, jd))
+    out_p = _port_rows(Tj, pi, w, thresh, method)
+    assert out_p.dtype == out_j.dtype and out_p.shape == out_j.shape
+    diff = float(np.abs(out_p - out_j).max())
+    print(f'{family} {method} {dtype}: max |port - JAX| {diff:.3g} K, '
+          f'adjustment {np.abs(out_j - T).max():.3g} K')
+    if dtype == 'f64':
+        np.testing.assert_allclose(out_p, out_j, atol=1e-8)
+        if family.startswith('oracle') and method == 'reference':
+            np.testing.assert_allclose(
+                out_p[:, 0], _oracle_single(p, T[:, 0], delta_T_thresh=1e9),
+                atol=1e-8)
+        return
+    if thresh == 1e9:
+        np.testing.assert_allclose(_enthalpy(out_p, p), _enthalpy(T, p),
+                                   rtol=2e-6)
+    if (family, method) in F32_CHAOTIC:
+        ref64 = np.asarray(jc.convective_adjustment(
+            jnp.asarray(p), jnp.asarray(T), delta_T_thresh=thresh,
+            method=method))
+        err_j = np.abs(out_j - ref64).max()
+        assert np.abs(out_p - ref64).max() <= 2 * err_j + 25.0
+    else:
+        assert diff <= F32_BOUND_K
+
+
+def test_public_api_orientation_and_shapes():
+    """``convective_adjustment`` with the port's own grid: [nz] and [nz, ny]
+    inputs, a batch [B, nz, ny], ascending p auto-flipped (as
+    test_convection.py:157), and f64 agreement with JAX's public function
+    (pi from each library's own pow: within 1e-8 K + 1e-7 relative)."""
+    p, T, _ = _family('multi_lat')
+    out_j = np.asarray(jc.convective_adjustment(jnp.asarray(p),
+                                                jnp.asarray(T)))
+    pt, Tt = torch.from_numpy(p), torch.from_numpy(T)
+    out_p = pc.convective_adjustment(pt, Tt).numpy()
+    np.testing.assert_allclose(out_p, out_j, atol=1e-8)
+    asc = pc.convective_adjustment(torch.flip(pt, [0]),
+                                   torch.flip(Tt, [0])).numpy()
+    np.testing.assert_allclose(asc[::-1], out_p, rtol=1e-12)
+    col = pc.convective_adjustment_single(pt, Tt[:, 2]).numpy()
+    np.testing.assert_array_equal(col, out_p[:, 2])
+    batch = pc.convective_adjustment(pt, torch.stack([Tt, Tt + 1.0]),
+                                     descending=True)
+    np.testing.assert_array_equal(batch[0].numpy(), out_p)
+    for j in range(T.shape[1]):
+        np.testing.assert_allclose(
+            pc.get_enthalpy(torch.from_numpy(out_p[:, j]), pt).item(),
+            _enthalpy(T[:, j], p), rtol=1e-8)
+    np.testing.assert_allclose(
+        pc.get_theta(Tt, pt[:, None]).numpy(),
+        np.asarray(jc.get_theta(jnp.asarray(T), jnp.asarray(p)[:, None])),
+        rtol=1e-15)
+
+
+def test_batched_reference_matches_vmapped_jax():
+    """64 columns with different sweep and group counts (noise amplitude 0
+    to 12 K: stable columns, single groups, many groups) through the port's
+    lock-step executor and JAX's vmapped ``_ref_rows``, f64, per-column
+    thresholds: within 1e-8 K + 1e-7 relative (test_convection.py's bound)."""
+    rng = np.random.default_rng(21)
+    nz = 40
+    p = _descending_p(nz)
+    amp = np.linspace(0.0, 12.0, 64)[:, None]
+    T = 320 - 60 * np.linspace(0, 1, nz)[None] + amp * rng.standard_normal(
+        (64, nz))
+    T[:, -1] = T[:, -2] + 30
+    pi, w = _jax_grid(jnp.asarray(p))
+    thresh = np.where(np.arange(64) % 3 == 0, 4.0, 1e9)   # some skip groups
+    out_j = np.asarray(jc._ref_rows(jnp.asarray(T), jnp.asarray(pi),
+                                    jnp.asarray(w), jnp.asarray(thresh)))
+    out_p = pc.reference_adjust_rows(torch.from_numpy(T), torch.tensor(pi),
+                                     torch.tensor(w),
+                                     torch.from_numpy(thresh)).numpy()
+    changed = np.abs(out_j - T).max(axis=1) > 0
+    assert 0 < changed.sum() < 64          # stable and adjusted columns
+    np.testing.assert_allclose(out_p, out_j, atol=1e-8)
+
+
+# --------------------------------------------------------------------------
+# iso_fit (K4) and its plain version
+# --------------------------------------------------------------------------
+
+ISO_SHAPES = [(2, 9), (7, 149), (140, 31), (127, 9), (129, 64), (128, 150),
+              (17, 255)]
+
+
+def _jax_prefix_sums(theta, v):
+    """SV [n+1, b] and SW [n+1] exactly as isotonic_increasing_lanes forms
+    them outside its pallas_call (pallas_isotonic.py:75-77)."""
+    theta_T = theta.T
+    sv = jnp.concatenate([jnp.zeros((1, theta.shape[0]), theta.dtype),
+                          jnp.cumsum(v[:, None] * theta_T, axis=0)], axis=0)
+    sw = jnp.concatenate([jnp.zeros((1,), theta.dtype), jnp.cumsum(v)])
+    return np.asarray(sv), np.asarray(sw)
+
+
+@pytest.mark.parametrize('b,n', ISO_SHAPES)
+def test_iso_fit_plain_bit_equal_to_pallas_and_formula(b, n):
+    """Given JAX's prefix sums, ``iso_fit_plain`` is bit-equal to the Pallas
+    kernel in interpret mode and to the XLA min-max table (the shapes of
+    test_convection.py:172-214), f32."""
+    from climatemodel_tpu.ops.pallas_isotonic import isotonic_increasing_lanes
+    rng = np.random.default_rng(b * 1000 + n)
+    theta = jnp.asarray(200 + 100 * rng.random((b, n)), jnp.float32)
+    v = jnp.asarray(rng.uniform(0.5, 2.0, (n,)), jnp.float32)
+    sv, sw = _jax_prefix_sums(theta, v)
+    got = pc.iso_fit_plain(torch.tensor(sv), torch.tensor(sw)).T
+    pallas = np.asarray(isotonic_increasing_lanes(theta, v, interpret=True))
+    table = np.asarray(jax.vmap(lambda th: jc._isotonic_increasing(th, v))(
+        theta))
+    np.testing.assert_array_equal(got.numpy(), pallas)
+    np.testing.assert_array_equal(got.numpy(), table)
+
+
+@pytest.mark.parametrize('dtype', ['f32', 'f64'])
+@pytest.mark.parametrize('b,n', [(7, 149), (129, 64), (17, 255)])
+def test_iso_rows_end_to_end_within_prefix_sum_bound(b, n, dtype):
+    """Through the port's own ``torch.cumsum`` the fit differs from JAX's
+    only by the prefix sums' rounding.  Each SV entry is off by at most
+    ~(log2 n + 1) eps |SV|_max (JAX's scan) plus half an ulp (PyTorch), and
+    an average over a run divides by at least min v, so |port - JAX| <=
+    4 (log2 n + 1) eps n (max v / min v) max|theta|."""
+    jd, pd = DTYPES[dtype]
+    rng = np.random.default_rng(n)
+    theta = 200 + 100 * rng.random((b, n))
+    v = rng.uniform(0.5, 2.0, (n,))
+    want = np.asarray(jax.vmap(lambda th: jc._isotonic_increasing(
+        th, jnp.asarray(v, jd)))(jnp.asarray(theta, jd)))
+    got = pc._iso_rows(torch.tensor(theta, dtype=pd),
+                       torch.tensor(v, dtype=pd)).numpy()
+    eps = np.finfo(want.dtype).eps
+    bound = 4 * (np.log2(n) + 1) * eps * n * (v.max() / v.min()) * 300.0
+    err = np.abs(got.astype(np.float64) - want).max()
+    print(f'{dtype} {b}x{n}: {err:.3g} (bound {bound:.3g})')
+    assert err <= bound
+    assert (np.diff(got, axis=1) >= 0).all()     # non-decreasing fits
+
+
+def test_segment_abs_max_exact():
+    """The port's scatter_reduce segment max equals the scatter formulation
+    of test_convection.py:217 exactly, all-False / all-True rows included,
+    batched over rows; and JAX's segmented-scan version at n = 150."""
+    rng = np.random.default_rng(3)
+    for n in (1, 2, 7, 150):
+        dT = rng.normal(size=(4, n))
+        changed = rng.random((4, n)) < np.array([[0.0], [0.3], [0.7], [1.0]])
+        got = pc._segment_abs_max(torch.from_numpy(dT),
+                                  torch.from_numpy(changed)).numpy()
+        for k in range(4):
+            starts = changed[k] & ~np.concatenate([[False], changed[k, :-1]])
+            seg_id = np.where(changed[k], np.cumsum(starts), 0)
+            seg_max = np.zeros(n + 1)
+            np.maximum.at(seg_max, seg_id, np.abs(dT[k]))
+            np.testing.assert_array_equal(
+                got[k], np.where(changed[k], seg_max[seg_id], 0.0))
+            if n == 150:
+                np.testing.assert_array_equal(got[k], np.asarray(
+                    jc._segment_abs_max(jnp.asarray(dT[k]),
+                                        jnp.asarray(changed[k]))))
+
+
+def test_median_even_count_matches_jnp():
+    """median(T)/4 is the 'auto' threshold.  With an even count jnp.median
+    averages the two middle values ((lo + hi) * 0.5) where torch.median
+    returns the lower one; median_last computes jnp's value exactly, f32 and
+    f64, and NaN gives NaN."""
+    rng = np.random.default_rng(8)
+    for dt in (np.float32, np.float64):
+        x = (200 + 100 * rng.random((5, 40))).astype(dt)
+        x[4, 7] = np.nan
+        got = pc.median_last(torch.from_numpy(x)).numpy()
+        want = np.asarray(jnp.median(jnp.asarray(x), axis=1))
+        np.testing.assert_array_equal(got, want)
+        assert (got[:4] != torch.median(torch.from_numpy(x[:4]), dim=1)
+                .values.numpy()).all()
+        odd = x[:4, :39]
+        np.testing.assert_array_equal(
+            pc.median_last(torch.from_numpy(odd)).numpy(),
+            np.asarray(jnp.median(jnp.asarray(odd), axis=1)))
+
+
+def test_div_probe_plain_bit_equal_to_numpy():
+    """K7's plain version on the probe's own inputs (seed 11, [256, 128],
+    10^U(-6,4) +-1 over 10^U(-4,5) +-1): a/b, (C a)/b and a/|b| bit-equal to
+    numpy's f32 arithmetic."""
+    rng = np.random.default_rng(11)
+    a = np.float32(10.0 ** rng.uniform(-6, 4, (256, 128))
+                   * rng.choice([-1, 1], (256, 128)))
+    b = np.float32(10.0 ** rng.uniform(-4, 5, (256, 128))
+                   * rng.choice([-1, 1], (256, 128)))
+    C = np.float32(9.81 / 1004.64)
+    got = pc.div_probe(torch.from_numpy(a), torch.from_numpy(b))
+    for g_, want in zip(got, (a / b, C * a / b, a / np.abs(b))):
+        assert g_.dtype == torch.float32
+        np.testing.assert_array_equal(g_.numpy(), want)
+
+
+# --------------------------------------------------------------------------
+# the convective column step and marches
+# --------------------------------------------------------------------------
+
+def _as_dict(x):
+    return dataclasses.asdict(jax.device_get(x))
+
+
+def _jax_conv_world(nz, steps, method, dtype=jnp.float64):
+    """A JAX thermosphere world marched ``steps`` convective steps with the
+    controller left live."""
+    w = JGreyGas(nz=nz, ny=1, dtype=dtype, **THERMOSPHERE)
+    st, _ = _grey_evolve(w.state, w.forcing, jnp.asarray(w.p_interface, dtype),
+                         jnp.asarray(w.p[:, 0], dtype),
+                         jnp.asarray(1e-12, dtype), t_end=1e9,
+                         max_steps=steps, final_reset=False,
+                         convective_adjust=True, conv_method=method)
+    return w, st
+
+
+@pytest.mark.parametrize('method', ['reference', 'isotonic'])
+@pytest.mark.parametrize('steps', [0, 1, 30])
+def test_update_temp_convective_matches_jax(steps, method):
+    """One convective update_temp step from JAX's f64 carry: T within 1e-9
+    K for the group blend (its last bits move with the sum order) and 1e-6
+    K for the isotonic fit (the f64 prefix sums' rounding, measured 2.2e-8
+    K), t, dt and max_tend to 1e-12 relative, the controller and the
+    convective mask equal."""
+    w, st = _jax_conv_world(40, steps, method)
+    p_int, p_c = jnp.asarray(w.p_interface), jnp.asarray(w.p[:, 0])
+    net_j = jnet(st.T, w.forcing)
+    st_j, _ = jcol.update_temp(st, net_j, p_int, p_c, convective_adjust=True,
+                               conv_method=method)
+    st_p = interop.column_state_from_numpy(_as_dict(st), dtype=torch.float64)
+    fo_p = interop.grey_forcing_from_numpy(_as_dict(w.forcing),
+                                           dtype=torch.float64)
+    st_q, _ = pcol.update_temp(st_p, pnet(st_p.T, fo_p),
+                               torch.from_numpy(w.p_interface),
+                               convective_adjust=True,
+                               p_centre_col=torch.from_numpy(w.p[:, 0]),
+                               conv_method=method)
+    bound = 1e-9 if method == 'reference' else 1e-6
+    assert np.abs(st_q.T[0].numpy() - np.asarray(st_j.T)).max() <= bound
+    for name in ('dt', 'max_tend'):
+        a, b = getattr(st_q.tsi, name).numpy(), np.asarray(
+            getattr(st_j.tsi, name))
+        assert np.abs(a - b).max() <= 1e-12 * np.abs(b).max(), name
+    np.testing.assert_allclose(st_q.t.numpy(), np.asarray(st_j.t), rtol=1e-12)
+    for name in ('max_tend_ind', 'n_same_1', 'n_same_2', 'removed',
+                 'convective'):
+        np.testing.assert_array_equal(getattr(st_q.tsi, name)[0].numpy(),
+                                      np.asarray(getattr(st_j.tsi, name)),
+                                      name)
+    if steps == 30:
+        assert np.asarray(st_j.tsi.convective).any()
+
+
+def test_update_temp_with_max_tend_ind_minus_one():
+    """A member with no allowed level keeps its reset controller
+    (max_tend_ind = -1).  JAX's gather wraps -1 to the last level and masks
+    the result with any_allowed; the port gathers from a clamped index and
+    must neither raise nor move: T, t, dt and flags as JAX's."""
+    w, st = _jax_conv_world(30, 5, 'reference')
+    d = _as_dict(st)
+    n = d['tsi']['removed'].shape[0]
+    d['tsi'].update(max_tend_ind=np.int32(-1), removed=np.ones(n, bool),
+                    convective=np.arange(n) == n - 1)
+    jst = jax.tree_util.tree_map(jnp.asarray, st).replace(
+        tsi=jcol.TimeStepInfo(**{k: jnp.asarray(v)
+                                 for k, v in d['tsi'].items()}))
+    p_int, p_c = jnp.asarray(w.p_interface), jnp.asarray(w.p[:, 0])
+    st_j, _ = jcol.update_temp(jst, jnet(jst.T, w.forcing), p_int, p_c,
+                               convective_adjust=True)
+    st_p = interop.column_state_from_numpy(d, dtype=torch.float64)
+    fo_p = interop.grey_forcing_from_numpy(_as_dict(w.forcing),
+                                           dtype=torch.float64)
+    st_q, _ = pcol.update_temp(st_p, pnet(st_p.T, fo_p),
+                               torch.from_numpy(w.p_interface),
+                               convective_adjust=True,
+                               p_centre_col=torch.from_numpy(w.p[:, 0]))
+    assert int(st_q.tsi.max_tend_ind[0]) == -1
+    np.testing.assert_array_equal(st_q.T[0].numpy(), np.asarray(st_j.T))
+    assert float(st_q.tsi.dt[0]) == float(st_j.tsi.dt)
+    assert float(st_q.t[0]) == float(st_j.t)
+    np.testing.assert_array_equal(st_q.tsi.convective[0].numpy(),
+                                  np.asarray(st_j.tsi.convective))
+
+
+LOCK_F = np.linspace(1200.0, 1500.0, 16)
+
+
+@pytest.mark.parametrize('method', ['reference', 'isotonic'])
+@pytest.mark.parametrize('dtype', ['f64', 'f32'])
+def test_convective_ensemble_step_by_step_matches_jax(dtype, method):
+    """16 thermosphere members at nz=40 (the convective ensemble's world,
+    cut in depth), flux_thresh 0.1, every step of every member from JAX's
+    vmapped carry (max_steps 150).  f64: T within 1e-8 K at every step for
+    the group blend and 1e-6 K for the isotonic fit (its prefix sums'
+    rounding, measured 2.8e-8 K), the controlling level, the exit flags and
+    the convective mask equal.
+
+    f32, group blend: every member-step whose convective mask agrees with
+    JAX's is within 0.1 K, all within 1 K (measured: 10% of member-steps
+    above 0.1 K, at most 0.50 K, each with a mask flip).  In f32 one ulp of
+    T near 250 K (1.5e-5 K) exceeds conv_thresh (1e-5 K), so the mask of a
+    level the blend touched is decided by its last bit; a blend decision
+    taken the other way moves its whole run.  f32, isotonic: the fit turns
+    the prefix sums' rounding into temperature, amplified by sum(v) / min(v)
+    ~ 4e5 on this grid (analytic worst case ~770 K; the f64 fit moves these
+    stable profiles by < 3e-4 K where each f32 fit moves them by K), so
+    per-step differences are held only to 10 K (measured 3.9 K).  The
+    controller, flag and convective-mask flips are counted and printed."""
+    jd, _ = DTYPES[dtype]
+    wj = JGreyGas(nz=40, ny=1, dtype=jd, **THERMOSPHERE)
+    states, forcings, _, _ = jens.grey_ensemble(wj, LOCK_F)
+    carry, rec = lockstep_march(states, forcings, wj.p_interface, wj.p[:, 0],
+                                0.1, max_steps=150, convective_adjust=True,
+                                conv_method=method)
+    steps = lambda k: np.concatenate([r[k][r['go']] for r in rec])  # noqa
+    dT = steps('dT')
+    ind_flips = int((~steps('ind_same')).sum())
+    flag_flips = int((~steps('flags_same')).sum())
+    conv_flips = int(steps('conv_flips').sum())
+    print(f'{dtype} {method}: {len(rec)} steps, {dT.size} member-steps, max '
+          f'|dT| {dT.max():.3g} K, {ind_flips} controller, {flag_flips} flag '
+          f'and {conv_flips} convective-level flips; JAX converged '
+          f'{np.asarray(carry[4]).mean():.3f}')
+    assert len(rec) > 30
+    if dtype == 'f64':
+        assert dT.max() <= (1e-8 if method == 'reference' else 1e-6)
+        assert ind_flips == 0 and flag_flips == 0 and conv_flips == 0
+    elif method == 'reference':
+        assert dT[steps('conv_flips') == 0].max() <= 0.1
+        assert dT.max() <= 1.0
+    else:
+        assert dT.max() <= 10.0
+
+
+def test_grey_rce_single_world():
+    """test_grey_rce.py:112 through the port at a fixed nz=60 (f64 on the
+    CPU, as the JAX suite runs it): the convective march converges for both
+    methods, theta is non-decreasing (> -1e-7) on levels with tau > 0.05,
+    and 150 < T < 400."""
+    for method in ('reference', 'isotonic'):
+        world = PGreyGas(nz=60, ny=1, device='cpu', dtype=torch.float64,
+                         **THERMOSPHERE)
+        world.evolve_to_equilibrium(flux_thresh=1e-1, save=False,
+                                    convective_adjust=True,
+                                    conv_method=method)
+        assert bool(world._equilibrium_info.equilibrium), method
+        alpha = R_specific / c_p_dry
+        active = world.tau[:, 0] > 0.05
+        theta = world.T[:, 0] / (world.p[:, 0] / p_surface_earth) ** alpha
+        assert np.all(np.diff(theta)[active[:-1]] > -1e-7), method
+        assert 150 < world.T.min() and world.T.max() < 400
+
+
+def test_equilibrium_sol_convective_matches_jax():
+    """equilibrium_sol(convective_adjust=True): the analytic profile passed
+    through the reference adjustment in f64 — within 1e-8 K + 1e-7 relative
+    of JAX's, and actually adjusted."""
+    kw = dict(nz=100, ny=1, tau_lw_func='scale_height',
+              tau_lw_func_args=[0.22 * p_surface_earth, 4.0])
+    *_, T_j, _, _, ok_j = JGreyGas(**kw).equilibrium_sol(convective_adjust=True)
+    world = PGreyGas(device='cpu', **kw)
+    *_, T_p, _, _, ok_p = world.equilibrium_sol(convective_adjust=True)
+    *_, T_rad, _, _, _ = world.equilibrium_sol()
+    assert ok_j == ok_p
+    np.testing.assert_allclose(T_p, T_j, atol=1e-8)
+    assert np.abs(T_p - T_rad).max() > 0.5
+
+
+@pytest.mark.parametrize('method', ['reference', 'isotonic'])
+def test_ensemble_robust_convective_on_cpu(method):
+    """grey_evolve_ensemble_robust carries the convective keywords into its
+    f64 finishing pass: 8 thermosphere members at nz=40, f32, no member nan
+    or failed, every member converged or timed out, finished members in the
+    ensemble's dtype."""
+    from climatemodel_tpu_torch.models import ensemble as pens
+    world = PGreyGas(nz=40, ny=1, device='cpu', **THERMOSPHERE)
+    states, forcings, p_int, p_c = pens.grey_ensemble(
+        world, np.linspace(1200.0, 1500.0, 8))
+    fs, info, finished = pens.grey_evolve_ensemble_robust(
+        states, forcings, p_int, p_c, 0.1, convective_adjust=True,
+        conv_method=method, max_steps=3000, finish_repeats=2)
+    print(f'{method}: converged {info.equilibrium.tolist()}, finished in f64 '
+          f'{list(finished)}, steps {info.steps.tolist()}')
+    assert not bool(info.nan.any()) and not bool(info.failed.any())
+    assert bool((info.equilibrium | info.timed_out
+                 | (info.steps >= 3000)).all())
+    assert fs.T.dtype == torch.float32 and bool(torch.isfinite(fs.T).all())
+
+
+def test_greygas_defaults_to_the_card():
+    """A GreyGas built without naming a device targets CUDA: with no card it
+    raises instead of marching on the CPU."""
+    if torch.cuda.is_available():
+        assert PGreyGas(nz=20, ny=1, **THERMOSPHERE).device.type == 'cuda'
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            PGreyGas(nz=20, ny=1, **THERMOSPHERE)
+    assert PGreyGas(nz=20, ny=1, device='cpu', **THERMOSPHERE).device.type \
+        == 'cpu'
+
+
+def test_cuda_convection_never_falls_back():
+    """Tensors on any device but the CPU go to the kernels, which raise
+    instead of computing elsewhere ('meta' stands in for a card)."""
+    T = torch.empty((3, 20), device='meta')
+    v = torch.empty((20,), device='meta')
+    with pytest.raises(ValueError, match='CUDA tensor'):
+        pc._iso_rows(T, v)
+    with pytest.raises(ValueError, match='CUDA tensor'):
+        pc.div_probe(torch.empty((4,), device='meta'),
+                     torch.empty((4,), device='meta'))

@@ -30,7 +30,7 @@ DTYPES = {'f64': (jnp.float64, torch.float64),
 
 def _worlds(kw, dtype):
     jd, pd = DTYPES[dtype]
-    return JGreyGas(dtype=jd, **kw), PGreyGas(dtype=pd, **kw)
+    return JGreyGas(dtype=jd, **kw), PGreyGas(dtype=pd, device='cpu', **kw)
 
 
 def _steps(records, key):

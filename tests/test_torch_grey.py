@@ -27,7 +27,7 @@ def test_no_sw_equilibrium_matches_analytic():
     T_eqb = ((F/2 sigma)(1 + tau))^(1/4) to <0.1 K where tau > 0.03."""
     world = GreyGas(nz=100, ny=1, tau_lw_func='scale_height',
                     tau_lw_func_args=[0.22 * p_surface_earth, 4.0],
-                    dtype=torch.float64)
+                    dtype=torch.float64, device='cpu')
     up_eqb, down_eqb, T_eqb, *_, correct = world.equilibrium_sol()
     assert correct
     _evolve_tight(world)
@@ -50,7 +50,7 @@ def test_sw_equilibrium_matches_analytic():
                     tau_sw_func='exponential',
                     tau_sw_func_args=[od.get_exponential_p_width(alpha_sw),
                                       0.6],
-                    dtype=torch.float64)
+                    dtype=torch.float64, device='cpu')
     *_, T_eqb, _, _, correct = world.equilibrium_sol()
     assert correct
     _evolve_tight(world)
@@ -106,9 +106,12 @@ def test_single_column_march_step_by_step_matches_jax(tau_lw_func, args):
 def test_single_column_api():
     """The ported GreyGas surface: a save=False march converges with the
     reference's flags, a repeat march restarts the clock and honours
-    T_initial (test_grey_rce.py:170), and the parts not ported raise."""
+    T_initial (test_grey_rce.py:170), and the parts not ported raise
+    (snapshots, chunk_steps, bake_forcing, check_every > 1,
+    take_time_step)."""
     world = GreyGas(nz=30, ny=1, tau_lw_func='scale_height',
-                    tau_lw_func_args=[0.22 * p_surface_earth, 4.0])
+                    tau_lw_func_args=[0.22 * p_surface_earth, 4.0],
+                    device='cpu')
     assert world.T.shape == (world.nz - 1, 1) and world.T.dtype == np.float32
     data = world.evolve_to_equilibrium(flux_thresh=1e-2, save=False)
     info = world._equilibrium_info
@@ -121,8 +124,7 @@ def test_single_column_api():
     active = world.tau[:, 0] > 0.1
     dev = np.abs(world.T - T_eq)[active].max()
     assert 1e-4 < dev < 5.0
-    for kwargs in (dict(save=True), dict(save=False, convective_adjust=True),
-                   dict(save=False, chunk_steps=10),
+    for kwargs in (dict(save=True), dict(save=False, chunk_steps=10),
                    dict(save=False, bake_forcing=True),
                    dict(save=False, check_every=4)):
         with pytest.raises(NotImplementedError):

@@ -91,7 +91,7 @@ def test_grey_gas_host_arrays_and_initial_state_byte_equal(world, ny):
     flux (both packages in float64)."""
     kw = WORLDS[world]
     wj = JGreyGas(nz=40, ny=ny, dtype=jnp.float64, **kw)
-    wp = PGreyGas(nz=40, ny=ny, dtype=torch.float64, **kw)
+    wp = PGreyGas(nz=40, ny=ny, dtype=torch.float64, device='cpu', **kw)
     assert wj.nz == wp.nz
     for name in ('p_interface', 'p', 'tau_interface', 'tau', 'q', 'dtau',
                  'tau_sw_interface', 'tau_sw', 'q_sw', 'albedo_mod', 'F_sw0',

@@ -25,7 +25,9 @@ def test_port_imports_with_jax_blocked():
     proc = subprocess.run([sys.executable, '-c', code], cwd=root,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert len(MODULES) >= 10
+    assert len(MODULES) >= 12
+    assert {'climatemodel_tpu_torch.ops.convection',
+            'climatemodel_tpu_torch.ops.cuda_convection'} <= set(MODULES)
 
 
 def test_port_sources_never_import_jax():
