@@ -52,7 +52,7 @@ def thermosphere_kwargs(p_surface_earth):
                 tau_sw_func_args=[p_surface_earth, 0.12, 100, 20, 0.002])
 
 
-# The card's published peaks (on-chip-measurement guide; H100 SXM at 700 W)
+# The card's published peaks (H100 SXM at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
