@@ -5,8 +5,11 @@ GPU: builds the CUDA kernels from ``climatemodel_tpu_torch/ops/csrc/`` (one
 version on the card, probes the f32 division the kernels compile to, drives
 the grey radiative-equilibrium ensemble march at the headline size and the
 radiative-convective marches (the 512-member convective ensemble and the
-single thermosphere world, both adjustment methods), checks the card
-against the CPU step by step, and times the kernels.
+single thermosphere world, both adjustment methods) and the shallow-water
+engine (bench_sw's El Nino world at 2050 x 1026 through the fused Richtmyer
+kernel, and ``ShallowWater.time_step`` through its interior mode), checks
+the card against the CPU, profiles the marches and the shallow-water run,
+and times the kernels.
 
     python3 chip_smoke.py
 
@@ -656,6 +659,375 @@ def phase_conv_card_vs_cpu(ens, conv_state, dev, max_steps=400):
               f'{res[method]["lockstep_max_dT_K"]} K')
 
 
+# bench_sw (bench.py:141): the El Nino wind-feedback world scaled to
+# 2050 x 1026, f32, 400 steps; its CPU smoke size (bench.py:781)
+SW = dict(nx=2050, ny=1026, nt=400)
+SW_SMOKE = dict(nx=258, ny=130, nt=400)
+SW_RAGGED = (37, 29)
+# The fused step against its plain version on the card, in ulp.  Both take
+# the same +, -, *, / in the same order, each one IEEE rounding (no FMA in
+# the kernel's build, div.rn for the divisions; PyTorch's elementwise CUDA
+# ops round each op once too), and max2 is an exact max: bit-equal.
+SW_ULP_BOUND = 0
+# Card vs CPU over a free run: every elementwise op rounds identically on
+# both; only the wind's two masked sums (f32, ~1e5 cells) are reduced in
+# another order, so the wind differs in its last bits and the flow carries
+# that.  Measured on the H100: 1.5e-5 m (2 ulp of h ~ 100 m) and 2.2e-7 m/s
+# after 400 steps at 258 x 130, 0 m and 4.7e-10 m/s after 20 steps at full
+# width; the bounds leave a factor of 5 or more.
+SW_DH_BOUND_M = 1e-4
+SW_DU_BOUND = 1e-6
+# operations per interior cell of the flat step: the conservative form and
+# fluxes (9), the two faces' half-step states and fluxes (2 x 23), the
+# update (18), the source (7), 1 / h and r dt (2), damping (6), u^2 + v^2 (3)
+SW_OPS_FLAT = 91
+
+
+def sw_world(psw, Omega, R_earth, nx, ny, el_nino=True, **kw):
+    """bench_sw's worlds (bench.py:148-172): the El Nino forced-wind world
+    (walls, y sponge), or the wind-free height_gaussian world (periodic x,
+    walls y), with the fused kernel."""
+    import numpy as np
+    if el_nino:
+        h_mean, g_use = 100.0, 0.05
+        c = np.sqrt(g_use * h_mean)
+        beta = 2 * Omega / R_earth
+        L_def = np.sqrt(c / beta)
+        dx = L_def / 5
+        dt = 0.01 * dx / c
+        r = 1 / (10 * 30 * 24 * 3600)
+        return psw.ShallowWater(
+            nx=nx, ny=ny, dx=dx, dy=dx, dt=dt, f_0=0.0, beta=beta, r=r,
+            g=g_use, numerical_solver='richtmyer_pallas',
+            boundary_type={'x': 'walls', 'y': 'walls',
+                           'y_walls_damp': {'dist_thresh': (ny / 2) * dx
+                                            - 6 * dx, 'r': r * 100}},
+            initial_info={'type': 'el_nino', 'max_h_surface': 110.0,
+                          'min_h_surface': 90.0, 'y_std': L_def,
+                          'add_noise': False, 'wind': {'type': 'forced'}},
+            **kw)
+    return psw.ShallowWater(
+        nx=nx, ny=ny, dx=100e3, dy=100e3, dt=60.0, f_0=1e-4, beta=1.6e-11,
+        numerical_solver='richtmyer_pallas',
+        initial_info={'type': 'height_gaussian', 'min_h_surface': 9750.0,
+                      'max_h_surface': 10750.0, 'x0': 0.0, 'y0': 0.0,
+                      'x_std': 4000e3, 'y_std': 4000e3, 'add_noise': False},
+        **kw)
+
+
+def sw_inputs(gen, nx, ny, dtype, dev, flat, rows):
+    """Random fields of the fused step: h ~ 100 m, u, v ~ 0.1 m/s, f and r
+    of the El Nino world's size, orography gradients ~ 1e-5, scalars as
+    0-d tensors on the card."""
+    import torch
+    r = lambda *s: torch.rand(*s, generator=gen, dtype=torch.float64)  # noqa
+    n = lambda *s: torch.randn(*s, generator=gen, dtype=torch.float64)  # noqa
+    nr = 1 if rows else nx - 2
+    t = lambda x: x.to(dtype).to(dev)  # noqa: E731
+    return dict(
+        h=t(100 + 5 * n(nx, ny)), u=t(0.1 * n(nx, ny)), v=t(0.1 * n(nx, ny)),
+        f=t(2.3e-11 * 1e5 * (r(nr, ny - 2) - 0.5)), r=t(4e-7 * r(nr, ny - 2)),
+        dhbx=None if flat else t(1e-5 * n(nx - 2, ny - 2)),
+        dhby=None if flat else t(1e-5 * n(nx - 2, ny - 2)),
+        dt=t(torch.tensor(279.5)), ok=torch.tensor(True, device=dev),
+        g=t(torch.tensor(0.05)), dx=t(torch.tensor(62500.0)),
+        dy=t(torch.tensor(62500.0)))
+
+
+def sw_args(x):
+    return (x['h'], x['u'], x['v'], x['f'], x['r'], x['dhbx'], x['dhby'],
+            x['dt'], x['ok'], x['g'], x['dx'], x['dy'])
+
+
+SW_MODES = [(None, None)] + [(bx, by) for bx in ('walls', 'periodic', 'given')
+                             for by in ('walls', 'periodic')]
+
+
+def phase_sw_kernels(csl, pst, dev):
+    """The fused Richtmyer step (K5 and K6) against its plain version on the
+    card: f32 and f64, the interior mode and every boundary mode, flat
+    orography with row f and r and orography with full fields, a ragged grid
+    and 2050 x 1026; then ok False and a NaN in u (phase 2d)."""
+    import torch
+    at_main = {}
+    for dtype in (torch.float32, torch.float64):
+        gen = torch.Generator().manual_seed(40)
+        for nx, ny in (SW_RAGGED, (SW['nx'], SW['ny'])):
+            for flat, rows in ((True, True), (False, False)):
+                x = sw_inputs(gen, nx, ny, dtype, dev, flat, rows)
+                for bx, by in SW_MODES:
+                    if bx is None:
+                        k = csl.richtmyer_step(*sw_args(x))
+                        p = pst.richtmyer_step_interior_plain(*sw_args(x))
+                    else:
+                        k = csl.richtmyer_step(*sw_args(x), bx=bx, by=by)
+                        p = pst.richtmyer_step_bc_plain(*sw_args(x), bx, by)
+                    torch.cuda.synchronize()
+                    # 'given' leaves the x ghost rows to the caller
+                    keep = slice(1, -1) if bx == 'given' else slice(None)
+                    ulps = {n: ulp_diff(a[keep], b[keep]) for n, a, b in
+                            zip('huv', k[:3], p[:3])}
+                    err = max(max_abs(a[keep], b[keep])
+                              for a, b in zip(k[:3], p[:3]))
+                    max2_equal = bool(k[3] == p[3])
+                    emit('kernel_vs_plain', kernel='richtmyer_step',
+                         dtype=str(dtype), nx=nx, ny=ny, bx=bx, by=by,
+                         flat=flat, row_f_r=rows, max_ulp=ulps,
+                         max_abs_err=err, max2_equal=max2_equal,
+                         max2=float(k[3]))
+                    check(max(ulps.values()) <= SW_ULP_BOUND and max2_equal,
+                          f'richtmyer_step {nx}x{ny} {dtype} ({bx}, {by}) '
+                          f'flat={flat}: {ulps} ulp, max2 equal {max2_equal}')
+                    if ((nx, ny, bx, by, flat) == (SW['nx'], SW['ny'], 'walls',
+                                                   'walls', True)
+                            and dtype == torch.float32):
+                        at_main['richtmyer_step'] = err
+        # ok False freezes the step; a NaN in u makes max2 NaN
+        x = sw_inputs(gen, *SW_RAGGED, dtype, dev, False, False)
+        x['u'][5, 7] = float('nan')
+        for ok in (True, False):
+            x['ok'] = torch.tensor(ok, device=dev)
+            k = csl.richtmyer_step(*sw_args(x), bx='walls', by='periodic')
+            p = pst.richtmyer_step_bc_plain(*sw_args(x), 'walls', 'periodic')
+            ulps = {n: ulp_diff(a, b) for n, a, b in zip('huv', k[:3], p[:3])}
+            frozen = all(torch.equal(a[1:-1, 1:-1].nan_to_num(7.0),
+                                     b[1:-1, 1:-1].nan_to_num(7.0))
+                         for a, b in zip(k[:3], (x['h'], x['u'], x['v'])))
+            emit('kernel_vs_plain', kernel='richtmyer_step', dtype=str(dtype),
+                 case='nan_in_u', ok=ok, max_ulp=ulps,
+                 max2_nan=bool(torch.isnan(k[3])), frozen=frozen)
+            check(max(ulps.values()) <= SW_ULP_BOUND
+                  and bool(torch.isnan(k[3])) and bool(torch.isnan(p[3])),
+                  f'richtmyer_step NaN case ok={ok} {dtype}: {ulps}')
+            check(frozen == (not ok), f'richtmyer_step ok={ok}: frozen '
+                  f'{frozen}')
+    return at_main
+
+
+def phase_sw_main(psw, Omega, R_earth, csl, dev):
+    """The shallow-water main path on the card (phase 3c): bench_sw's El
+    Nino world at 2050 x 1026, f32, 400 steps of ``sw_simulate`` (a warm
+    run, then the best of 3, each from the initial state), then one
+    ``ShallowWater.run`` of 400 steps with snapshots; the wind-free world
+    the same way.  The K6 count covers this phase and must equal the steps
+    taken.  Checked: ok, finite fields, t equal to the sum of the dts (400
+    one-step runs in f32 against one 400-step run, bit for bit)."""
+    import numpy as np
+    import torch
+    nt = SW['nt']
+    cells = (SW['nx'] - 2) * (SW['ny'] - 2)
+    res = {}
+    steps = 0
+    csl.reset_launch_counts()
+    for el_nino in (True, False):
+        # built without naming a device: the card
+        world = sw_world(psw, Omega, R_earth, SW['nx'], SW['ny'], el_nino)
+        check(world.state.h.is_cuda, 'ShallowWater did not default to the '
+              'card')
+        kw = world._step_kwargs()
+        params = world.params
+        state = psw.sw_simulate(world.state, params, nt, **kw)
+        torch.cuda.synchronize()
+        wall = float('inf')
+        for _ in range(3):
+            # each run from the initial state: the El Nino world turns
+            # unstable near its x-wall/sponge corners after ~500 steps, in
+            # the JAX package too, so chained runs would time frozen steps
+            t0 = time.perf_counter()
+            state = psw.sw_simulate(world.state, params, nt, **kw)
+            torch.cuda.synchronize()
+            wall = min(wall, time.perf_counter() - t0)
+        steps += 4 * nt
+        r = dict(cell_updates_per_sec=cells * nt / wall, wall_s=wall,
+                 ms_per_step=1e3 * wall / nt, steps=nt,
+                 grid=[SW['nx'], SW['ny']], row_geometry=kw['row_geometry'],
+                 flat_orography=kw['flat_orography'],
+                 ok=bool(state.ok), t_days=float(state.t) / 86400.0)
+        check(r['ok'], f'el_nino={el_nino}: the run aborted (dt < 10 s)')
+        check(all(bool(torch.isfinite(x).all())
+                  for x in (state.h, state.u, state.v)), 'non-finite fields')
+        # t is the f32 sum of the dts: 400 one-step runs, then one run
+        st = world.state
+        t_sum = st.t.clone()
+        for _ in range(nt):
+            st = psw.sw_simulate(st, params, 1, **kw)
+            t_sum = t_sum + st.dt
+        one = psw.sw_simulate(world.state, params, nt, **kw)
+        steps += 2 * nt
+        same = all(torch.equal(getattr(one, k), getattr(st, k))
+                   for k in ('h', 'u', 'v', 't'))
+        r.update(t_equals_sum_of_dts=bool(one.t == t_sum),
+                 one_step_runs_equal_one_run=same)
+        check(r['t_equals_sum_of_dts'], 't differs from the sum of the dts')
+        check(same, '400 one-step runs differ from one 400-step run')
+        if el_nino:
+            t0 = time.perf_counter()
+            data = world.run(nt=nt, save_every=(nt // 4) * world.dt_0)
+            steps += nt
+            h_e, h_w = world.get_average_east_west_boundary_thickness(
+                data['h'], *(world.initial_info['wind'][k] for k in
+                             ('x_average_width', 'y_average_width')))
+            r.update(run_wall_s=time.perf_counter() - t0,
+                     run_snapshots=int(len(data['t'])),
+                     run_t_days=float(data['t'][-1]) / 86400.0,
+                     h_east_m=[float(x) for x in h_e[[0, -1]]],
+                     h_west_m=[float(x) for x in h_w[[0, -1]]])
+            check(len(data['t']) == 5 and all(np.isfinite(data[k]).all()
+                                              for k in 'huv'),
+                  'ShallowWater.run: wrong snapshots or non-finite fields')
+            # reported, not checked: the world past the bench's 400 steps
+            # (f dt ~ 0.2 at its y edges grows inertial oscillations), from
+            # where run() left it, step nt
+            probe, st = [], world.state
+            for k in range(1, 7):
+                st = psw.sw_simulate(st, params, nt // 4, **kw)
+                probe.append([nt + k * (nt // 4), bool(st.ok), float(
+                    torch.sqrt(torch.max(st.u * st.u + st.v * st.v)))])
+            steps += 6 * (nt // 4)
+            r['stability_probe_step_ok_max_speed'] = probe
+            res['el_nino'] = r
+        else:
+            res['no_wind_cell_updates_per_sec'] = r['cell_updates_per_sec']
+            res['no_wind_ms_per_step'] = r['ms_per_step']
+            res['no_wind'] = r
+    launches = dict(csl.launch_counts)
+    res.update(launches=launches, steps_taken=steps,
+               cell_updates_per_sec=res['el_nino']['cell_updates_per_sec'],
+               wall_s=res['el_nino']['wall_s'],
+               ms_per_step=res['el_nino']['ms_per_step'], steps=nt,
+               grid=[SW['nx'], SW['ny']])
+    emit('sw_main', **res)
+    check(launches['richtmyer_step_bc'] == steps,
+          f'K6 launched {launches["richtmyer_step_bc"]} times for {steps} '
+          f'steps')
+    check(launches['richtmyer_step_interior'] == 0, 'K5 launched on the run '
+          'path')
+    return launches['richtmyer_step_bc']
+
+
+def phase_sw_step_path(psw, Omega, R_earth, csl, dev, n=5):
+    """``ShallowWater.time_step`` at 2050 x 1026 goes through K5 plus the
+    plain BCs and wind; step by step it equals the run path (K6) from the
+    same state, bit for bit (phase 3d)."""
+    import torch
+    world = sw_world(psw, Omega, R_earth, SW['nx'], SW['ny'], device=dev)
+    kw = world._step_kwargs()
+    st = world.state
+    csl.reset_launch_counts()
+    t = 0.0
+    worst = 0.0
+    for _ in range(n):
+        t, _ = world.time_step(t, save_every=1e18)
+        k5 = csl.launch_counts['richtmyer_step_interior']
+        st = psw.sw_simulate(st, world.params, 1, **kw)
+        worst = max([worst] + [max_abs(getattr(world.state, k), getattr(st, k))
+                               for k in ('h', 'u', 'v')])
+        check(all(torch.equal(getattr(world.state, k), getattr(st, k))
+                  for k in ('h', 'u', 'v', 't')),
+              'time_step (K5) differs from the run path (K6)')
+    launches = dict(csl.launch_counts)
+    emit('sw_step_path', steps=n, launches=launches, max_abs_diff=worst,
+         bit_equal=worst == 0.0)
+    check(k5 > 0, 'K5 never launched on the time_step path')
+    return k5
+
+
+def phase_sw_card_vs_cpu(psw, Omega, R_earth, dev, full_steps=20):
+    """The card against the port's plain path on the CPU from one shared
+    state, free running: the full-width El Nino world for ``full_steps``
+    steps and the bench's CPU smoke size 258 x 130 for all 400 (phase 4d)."""
+    res = {}
+    for name, nx, ny, nt in (('full', SW['nx'], SW['ny'], full_steps),
+                             ('smoke', SW_SMOKE['nx'], SW_SMOKE['ny'],
+                              SW_SMOKE['nt'])):
+        world = sw_world(psw, Omega, R_earth, nx, ny, device=dev)
+        kw = world._step_kwargs()
+        card = psw.sw_simulate(world.state, world.params, nt, **kw)
+        cpu_state = world.state.map(lambda x: x.cpu())
+        cpu_params = world.params.map(lambda x: x.cpu())
+        cpu = psw.sw_simulate(cpu_state, cpu_params, nt, **kw)
+        res[name] = dict(grid=[nx, ny], steps=nt,
+                         max_dh_m=max_abs(card.h.cpu(), cpu.h),
+                         max_du=max_abs(card.u.cpu(), cpu.u),
+                         max_dv=max_abs(card.v.cpu(), cpu.v),
+                         t_card=float(card.t), t_cpu=float(cpu.t))
+    emit('sw_card_vs_cpu', bound_dh_m=SW_DH_BOUND_M, bound_du=SW_DU_BOUND,
+         **res)
+    for name, r in res.items():
+        check(r['max_dh_m'] < SW_DH_BOUND_M and r['max_du'] < SW_DU_BOUND
+              and r['max_dv'] < SW_DU_BOUND,
+              f'shallow water card vs CPU ({name}): {r}')
+
+
+def phase_sw_profile(psw, Omega, R_earth, dev, nt=100):
+    """Where an El Nino step's time goes (phase 4e): ``nt`` steps of
+    ``sw_simulate`` at 2050 x 1026 under ``torch.profiler`` (CUDA activity):
+    device operations per step, the device's idle share, and the fused
+    kernel's device time against the rest (the wind's masked means, the
+    max2 recompute, the scalar controller, the ghost re-zero)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    world = sw_world(psw, Omega, R_earth, SW['nx'], SW['ny'], device=dev)
+    kw = world._step_kwargs()
+    psw.sw_simulate(world.state, world.params, 5, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        psw.sw_simulate(world.state, world.params, nt, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [(getattr(e, 'device_time_total', None)
+             or getattr(e, 'cuda_time_total', 0), e.count, e.key)
+            for e in prof.key_averages()]
+    rows = [r for r in rows if r[0] > 0]
+    busy = sum(r[0] for r in rows) / 1e6
+    fused = sum(r[0] for r in rows if 'richtmyer_kernel' in r[2]
+                or 'max_reduce_kernel' in r[2]) / 1e6
+    res = dict(steps=nt, wall_s=wall, ms_per_step=1e3 * wall / nt,
+               device_busy_s=busy,
+               device_idle_share=1 - busy / wall if busy > 0 else None,
+               device_ops_per_step=sum(r[1] for r in rows) / nt,
+               fused_kernel_ms_per_step=1e3 * fused / nt,
+               rest_ms_per_step=1e3 * (busy - fused) / nt,
+               top_kernels_ms=[[k[:60], round(t / 1e3, 3), c] for t, c, k in
+                               sorted(rows, reverse=True)[:8]])
+    emit('sw_profile', **res)
+    return res
+
+
+def phase_sw_times(csl, pst, dev):
+    """The fused step at 2050 x 1026 f32 against its plain version (phase
+    5b): K6 walls/walls with row f and r and flat orography (the bench
+    world's configuration, outputs double-buffered as the run does) and K5
+    with the same inputs.  Bound: the bytes the function must move (h, u, v
+    read once, the f and r rows, the outputs written once) over the card's
+    memory rate, and its operations (``SW_OPS_FLAT`` a cell) over its f32
+    rate.  No single PyTorch call computes the step, so no library time."""
+    import torch
+    gen = torch.Generator().manual_seed(41)
+    nx, ny = SW['nx'], SW['ny']
+    x = sw_inputs(gen, nx, ny, torch.float32, dev, True, True)
+    bufs = tuple(torch.empty_like(x['h']) for _ in range(3))
+    args = sw_args(x)
+    cells = (nx - 2) * (ny - 2)
+    read = 4 * (3 * nx * ny + 2 * (ny - 2))
+    res = {
+        'richtmyer_step_bc': dict(timed_pair(
+            lambda: csl.richtmyer_step(*args, bx='walls', by='walls',
+                                       out=bufs),
+            lambda: pst.richtmyer_step_bc_plain(*args, 'walls', 'walls')),
+            grid=[nx, ny], mode='walls/walls',
+            bound=bound(read + 4 * (3 * nx * ny + 1), SW_OPS_FLAT * cells)),
+        'richtmyer_step_interior': dict(timed_pair(
+            lambda: csl.richtmyer_step(*args),
+            lambda: pst.richtmyer_step_interior_plain(*args)),
+            grid=[nx, ny], mode='interior',
+            bound=bound(read + 4 * (3 * cells + 1), SW_OPS_FLAT * cells)),
+    }
+    emit('kernel_times', **res)
+    return res
+
+
 def bound(nbytes, ops):
     """(ms, 'bytes' | 'operations'): the least time the card could take to
     move ``nbytes`` and do ``ops`` f32 operations at its published peaks."""
@@ -780,13 +1152,17 @@ def main():
               f'to {Path(__file__).name}', file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from climatemodel_tpu_torch.constants import p_surface_earth
+    from climatemodel_tpu_torch.constants import Omega, R_earth, \
+        p_surface_earth
     from climatemodel_tpu_torch.models import ensemble as ens
+    from climatemodel_tpu_torch.models import shallow_water as psw
     from climatemodel_tpu_torch.models.grey import GreyGas
     from climatemodel_tpu_torch.ops import _cuda_build
     from climatemodel_tpu_torch.ops import convection as pc
     from climatemodel_tpu_torch.ops import cuda_convection as ccv
+    from climatemodel_tpu_torch.ops import cuda_stencils as csl
     from climatemodel_tpu_torch.ops import cuda_two_stream as cts
+    from climatemodel_tpu_torch.ops import stencils as pst
     from climatemodel_tpu_torch.ops import two_stream as ts
     mods = (cts, ccv)
 
@@ -800,7 +1176,7 @@ def main():
 
     # one nvcc per source, and the PTX of convection.cu, all at once
     t0 = time.perf_counter()
-    sources = ('two_stream', 'convection')
+    sources = ('two_stream', 'convection', 'stencils')
     with ThreadPoolExecutor(max_workers=len(sources) + 1) as pool:
         futures = {name: pool.submit(_cuda_build.build, name)
                    for name in sources}
@@ -809,6 +1185,7 @@ def main():
         ptx_text = ptx_future.result()
     cts.library()
     ccv.library()
+    csl.library()
     for name, res in built.items():
         log = res.log.splitlines()
         regs = [int(w.split()[1]) for line in log
@@ -824,15 +1201,21 @@ def main():
 
     at_main = phase_kernels(cts, ts, dev)
     at_main.update(phase_conv_kernels(ccv, pc, dev))
+    at_main.update(phase_sw_kernels(csl, pst, dev))
     probe = phase_div_probe(pc, mods, dev, ptx_text)
     main_res = phase_main(ens, GreyGas, p_surface_earth, mods, dev)
     launches = main_res[5]
     conv_res, conv_state = phase_conv_main(ens, GreyGas, p_surface_earth,
                                            mods, dev)
+    k6_launches = phase_sw_main(psw, Omega, R_earth, csl, dev)
+    k5_launches = phase_sw_step_path(psw, Omega, R_earth, csl, dev)
     phase_card_vs_cpu(ens, GreyGas, p_surface_earth, main_res, dev)
     phase_conv_card_vs_cpu(ens, conv_state, dev)
+    phase_sw_card_vs_cpu(psw, Omega, R_earth, dev)
     phase_conv_profile(ens, conv_state)
+    phase_sw_profile(psw, Omega, R_earth, dev)
     times = phase_times(cts, ts, ccv, pc, dev, probe)
+    times.update(phase_sw_times(csl, pst, dev))
 
     def entry(name, source, replaces, n_launch, err, t, library_ms=None):
         return {'name': name, 'route': 'cuda',
@@ -861,6 +1244,11 @@ def main():
               library_ms=(times['div_probe']['library_device_ms']
                           if times['div_probe']['device_ms'] is not None
                           else times['div_probe']['library_ms'])),
+        entry('richtmyer_step', 'stencils.cu',
+              'climatemodel_tpu/ops/pallas_stencils.py:158 (_kernel_body, '
+              'K5) and :304 (_kernel_frame_body, K6)',
+              k6_launches + k5_launches, at_main['richtmyer_step'],
+              times['richtmyer_step_bc']),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -127,9 +127,9 @@ class ColumnState(TensorStruct):
 
 def init_time_step_info(n_levels_flat: int, temp_change: float = 1.0,
                         delta_temp_change: float = 0.01, *, batch: int = 1,
-                        dtype=torch.float32, device='cpu') -> TimeStepInfo:
+                        dtype=torch.float32, device='cuda') -> TimeStepInfo:
     """Fresh TimeStepInfo for ``batch`` marches (reference time_step_info
-    defaults, base.py:125-128)."""
+    defaults, base.py:125-128), on the card unless ``device`` names another."""
     def f(v):
         return torch.full((batch,), v, dtype=dtype, device=device)
 

@@ -1,8 +1,9 @@
 """Carry state and forcing across from NumPy arrays.
 
 Each function here takes a mapping of NumPy arrays keyed by the JAX package's
-field names (``ColumnState``, ``TimeStepInfo``, ``GreyForcing``), plus a
-device and a float dtype, and returns the port's batched dataclass.  An
+field names (``ColumnState``, ``TimeStepInfo``, ``GreyForcing``, ``SWState``,
+``SWParams``), plus a device (the card unless the caller names another) and
+a float dtype, and returns the port's dataclass.  For the column structs an
 unbatched single-column mapping (``T`` of shape [nz-1, ny]) gets a batch
 axis of one, so a JAX ``GreyGas.state`` pulled with ``jax.device_get`` and
 turned into a dict feeds the port directly.  Integer fields become int32,
@@ -17,6 +18,7 @@ import torch
 
 from ..models.column import ColumnState, TimeStepInfo
 from ..models.grey import GreyForcing
+from ..models.shallow_water import SWParams, SWState
 
 _INT_FIELDS = ('max_tend_ind', 'n_same_1', 'n_same_2')
 _BOOL_FIELDS = ('removed', 'convective')
@@ -39,7 +41,7 @@ def _convert(name, value, device, dtype, add_batch):
     return torch.tensor(a, device=device)
 
 
-def time_step_info_from_numpy(d, device='cpu', dtype=torch.float32,
+def time_step_info_from_numpy(d, device='cuda', dtype=torch.float32,
                               add_batch=None) -> TimeStepInfo:
     """:class:`TimeStepInfo` from a mapping of NumPy arrays.  ``add_batch``
     defaults to "the mapping is a single column" (0-d ``delta_t``)."""
@@ -51,7 +53,7 @@ def time_step_info_from_numpy(d, device='cpu', dtype=torch.float32,
                            for f in dataclasses.fields(TimeStepInfo)})
 
 
-def column_state_from_numpy(d, device='cpu', dtype=torch.float32) -> ColumnState:
+def column_state_from_numpy(d, device='cuda', dtype=torch.float32) -> ColumnState:
     """:class:`ColumnState` from a mapping with ``T``, ``net_flux``, ``t``
     and ``tsi`` (itself a mapping or dataclass of arrays)."""
     d = _as_mapping(d)
@@ -62,10 +64,30 @@ def column_state_from_numpy(d, device='cpu', dtype=torch.float32) -> ColumnState
                                                      add_batch))
 
 
-def grey_forcing_from_numpy(d, device='cpu', dtype=torch.float32) -> GreyForcing:
+def grey_forcing_from_numpy(d, device='cuda', dtype=torch.float32) -> GreyForcing:
     """:class:`GreyForcing` from a mapping with the JAX field names."""
     d = _as_mapping(d)
     add_batch = np.ndim(d['dtau']) == 2
     return GreyForcing(**{f.name: _convert(f.name, d[f.name], device, dtype,
                                            add_batch)
                           for f in dataclasses.fields(GreyForcing)})
+
+
+def sw_state_from_numpy(d, device='cuda', dtype=torch.float32) -> SWState:
+    """:class:`SWState` from a mapping (or dataclass) of the JAX ``SWState``
+    fields: h, u, v [nx, ny], 0-d t and dt in ``dtype``, 0-d bool ok."""
+    d = _as_mapping(d)
+    fields = {k: torch.tensor(np.asarray(d[k]), device=device).to(dtype)
+              for k in ('h', 'u', 'v', 't', 'dt')}
+    return SWState(ok=torch.tensor(bool(np.asarray(d['ok'])), device=device),
+                   **fields)
+
+
+def sw_params_from_numpy(d, device='cuda', dtype=torch.float32) -> SWParams:
+    """:class:`SWParams` from a mapping (or dataclass) of the JAX
+    ``SWParams`` fields, every one in ``dtype`` (the masks too, as in the
+    JAX package)."""
+    d = _as_mapping(d)
+    return SWParams(**{f.name: torch.tensor(np.asarray(d[f.name]),
+                                            device=device).to(dtype)
+                       for f in dataclasses.fields(SWParams)})

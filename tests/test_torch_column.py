@@ -52,9 +52,11 @@ def test_update_temp_step_matches_jax(steps):
     net_j = jnet(st.T, forcing)
     st_j, delta_j = jcol.update_temp(st, net_j, p_int, jnp.asarray(w.p[:, 0]))
 
-    st_p = interop.column_state_from_numpy(_as_dict(st), dtype=torch.float64)
+    st_p = interop.column_state_from_numpy(_as_dict(st), device='cpu',
+                                           dtype=torch.float64)
     fo_p = interop.grey_forcing_from_numpy(
-        dataclasses.asdict(jax.device_get(forcing)), dtype=torch.float64)
+        dataclasses.asdict(jax.device_get(forcing)), device='cpu',
+        dtype=torch.float64)
     net_p = pnet(st_p.T, fo_p)
     assert _rel(net_p[0].numpy(), net_j) <= REL
     st_p2, delta_p = pcol.update_temp(
@@ -101,7 +103,8 @@ def test_update_time_step_cases_match_jax():
     allowed[:, 7] = False
     batch = {k: np.stack([np.asarray(c[k]) for c in cases]) for k in cases[0]}
     tp = pcol.update_time_step(
-        interop.time_step_info_from_numpy(batch, dtype=torch.float64),
+        interop.time_step_info_from_numpy(batch, device='cpu',
+                                          dtype=torch.float64),
         torch.from_numpy(tend), torch.from_numpy(allowed))
     for k, c in enumerate(cases):
         tj = jcol.update_time_step(
@@ -130,7 +133,8 @@ def test_update_time_step_tie_and_all_masked():
                      [0.0, 2e-6, 3e-6, 4e-6, 5e-6, 6e-6]])
     allowed = np.array([[True] * n, [False] * n])
     tp = pcol.update_time_step(
-        interop.time_step_info_from_numpy(tsi, dtype=torch.float64),
+        interop.time_step_info_from_numpy(tsi, device='cpu',
+                                          dtype=torch.float64),
         torch.from_numpy(tend), torch.from_numpy(allowed))
     for k in range(2):
         tj = jcol.update_time_step(
@@ -261,7 +265,8 @@ def lockstep_march(jstates, jforcings, p_interface, p_centre, flux_thresh, *,
              f(False, bool), f(False, bool), f(False, bool), f(False, bool))
     t0 = jstates.t
     fo = interop.grey_forcing_from_numpy(
-        dataclasses.asdict(jax.device_get(jforcings)), dtype=dt_p)
+        dataclasses.asdict(jax.device_get(jforcings)), device='cpu',
+        dtype=dt_p)
     p_int = torch.from_numpy(np.asarray(p_interface)).to(dt_p)
     net_fn, stats_fn = grey_march_fns(fo, (B,) + jstates.net_flux.shape[1:],
                                       fused_stats=fused)
@@ -277,7 +282,7 @@ def lockstep_march(jstates, jforcings, p_interface, p_centre, flux_thresh, *,
             return carry, records
         host = jax.device_get(carry)
         st_p = interop.column_state_from_numpy(dataclasses.asdict(host[0]),
-                                               dtype=dt_p)
+                                               device='cpu', dtype=dt_p)
         out = pcol.march_step(
             st_p, torch.tensor(host[1]), torch.tensor(host[3]), t0_p,
             net_fn, p_int, t_end=t_end, net_stats_fn=stats_fn, **conv_kw)

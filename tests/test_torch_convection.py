@@ -365,9 +365,10 @@ def test_update_temp_convective_matches_jax(steps, method):
     net_j = jnet(st.T, w.forcing)
     st_j, _ = jcol.update_temp(st, net_j, p_int, p_c, convective_adjust=True,
                                conv_method=method)
-    st_p = interop.column_state_from_numpy(_as_dict(st), dtype=torch.float64)
-    fo_p = interop.grey_forcing_from_numpy(_as_dict(w.forcing),
+    st_p = interop.column_state_from_numpy(_as_dict(st), device='cpu',
                                            dtype=torch.float64)
+    fo_p = interop.grey_forcing_from_numpy(_as_dict(w.forcing),
+                                           device='cpu', dtype=torch.float64)
     st_q, _ = pcol.update_temp(st_p, pnet(st_p.T, fo_p),
                                torch.from_numpy(w.p_interface),
                                convective_adjust=True,
@@ -405,9 +406,10 @@ def test_update_temp_with_max_tend_ind_minus_one():
     p_int, p_c = jnp.asarray(w.p_interface), jnp.asarray(w.p[:, 0])
     st_j, _ = jcol.update_temp(jst, jnet(jst.T, w.forcing), p_int, p_c,
                                convective_adjust=True)
-    st_p = interop.column_state_from_numpy(d, dtype=torch.float64)
-    fo_p = interop.grey_forcing_from_numpy(_as_dict(w.forcing),
+    st_p = interop.column_state_from_numpy(d, device='cpu',
                                            dtype=torch.float64)
+    fo_p = interop.grey_forcing_from_numpy(_as_dict(w.forcing),
+                                           device='cpu', dtype=torch.float64)
     st_q, _ = pcol.update_temp(st_p, pnet(st_p.T, fo_p),
                                torch.from_numpy(w.p_interface),
                                convective_adjust=True,

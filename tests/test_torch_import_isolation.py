@@ -25,9 +25,12 @@ def test_port_imports_with_jax_blocked():
     proc = subprocess.run([sys.executable, '-c', code], cwd=root,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert len(MODULES) >= 12
+    assert len(MODULES) >= 15
     assert {'climatemodel_tpu_torch.ops.convection',
-            'climatemodel_tpu_torch.ops.cuda_convection'} <= set(MODULES)
+            'climatemodel_tpu_torch.ops.cuda_convection',
+            'climatemodel_tpu_torch.ops.stencils',
+            'climatemodel_tpu_torch.ops.cuda_stencils',
+            'climatemodel_tpu_torch.models.shallow_water'} <= set(MODULES)
 
 
 def test_port_sources_never_import_jax():
