@@ -44,7 +44,15 @@ CONV = dict(members=512, nz=150, F=(1200.0, 1500.0), flux_thresh=0.1,
 CONV_SINGLE = dict(nz=150, flux_thresh=1e-3, t_end=30.0)
 CONV_SAMPLED = (0, 170, 341, 511)
 METHODS = ('reference', 'isotonic')
-ISO_SHAPES = [(512, 149), (4096, 59), (7, 149), (129, 64), (1, 8), (17, 255)]
+# K4 (b members x n levels): the convective ensemble's width, the grey
+# headline's, ragged shapes, and n = 1, 2, 33 and the kernel's 512
+ISO_SHAPES = [(512, 149), (4096, 59), (7, 149), (129, 64), (1, 8), (17, 255),
+              (9, 1), (33, 2), (65, 33), (8, 512)]
+# K3 (n cells, b members, top-k depth L): the grey headline's (L of the 95th
+# percentile of 60 interfaces) and the convective ensemble's (150: L = 9),
+# ragged shapes, L = 2 and L = 32
+K3_CASES = [(59, 4096, 4), (149, 512, 9), (149, 16, 9), (20, 1025, 3),
+            (5, 9, 4), (59, 130, 2), (63, 100, 32), (31, 7, 32)]
 
 
 def thermosphere_kwargs(p_surface_earth):
@@ -73,8 +81,13 @@ class Failed(Exception):
     pass
 
 
+T_START = time.perf_counter()
+
+
 def emit(phase, **fields):
-    print(json.dumps({'phase': phase, **fields}), flush=True)
+    """One JSON line, with the seconds since the script started."""
+    print(json.dumps({'phase': phase, **fields,
+                      'elapsed_s': time.perf_counter() - T_START}), flush=True)
 
 
 def check(ok, what):
@@ -125,8 +138,20 @@ def walk_inputs(gen, n, b, dtype, dev):
     return T, dtau, toa
 
 
+def stats_rows(gen, n, b, dtype, dev):
+    """K3's inputs as the march holds them, one member per row: T, dtau
+    [b, n], up_sw, down_sw [b, n+1], up_toa [b], prev_net [b, n+1]."""
+    import torch
+    r = lambda *s: torch.rand(*s, generator=gen, dtype=torch.float64)  # noqa
+    t = lambda x: x.to(dtype).to(dev)  # noqa: E731
+    return (t(200 + 100 * r(b, n)), t(0.2 * r(b, n)), t(100 * r(b, n + 1)),
+            t(300 * r(b, n + 1)), t(200 + 50 * r(b)),
+            t(300 * r(b, n + 1) - 150))
+
+
 def phase_kernels(cts, ts, dev):
-    """Each kernel against its plain version on the card (phase 2)."""
+    """Each kernel against its plain version on the card (phase 2): K1, and
+    K3 on the march's rows at K3_CASES and with a NaN in prev_net or in T."""
     import torch
     at_main = {}
     for dtype in (torch.float32, torch.float64):
@@ -145,38 +170,46 @@ def phase_kernels(cts, ts, dev):
             if (n, b) == (59, 4096) and dtype == torch.float32:
                 at_main['lw_walk'] = err
         gen = torch.Generator().manual_seed(33)
-        for n, b, pct in [(59, 4096, 95), (149, 16, 95), (20, 1025, 90),
-                          (5, 9, 50)]:
-            T, dtau, toa = walk_inputs(gen, n, b, dtype, dev)
-            r = lambda *s: torch.rand(*s, generator=gen,  # noqa: E731
-                                      dtype=torch.float64).to(dtype).to(dev)
-            usw, dsw, prev = 100 * r(n + 1, b), 300 * r(n + 1, b), \
-                300 * r(n + 1, b) - 150
-            L = ts.topk_depth(n + 1, pct)
-            args = (T, dtau, usw, dsw, toa, prev, L)
-            outk = cts.net_stats_walk(*args)
-            outp = ts.net_stats_sequential(*args)
+        cases = [(n, b, L, None) for n, b, L in K3_CASES] + [
+            (n, b, L, where) for n, b, L in ((149, 512, 9), (12, 16, 3))
+            for where in ('prev', 'temp')]
+        for n, b, L, where in cases:
+            args = stats_rows(gen, n, b, dtype, dev)
+            if where == 'prev':
+                args[5][3, 4] = float('nan')
+            elif where == 'temp':
+                args[0][3, n // 2] = float('nan')
+            outk = cts.net_stats_walk(*args, L)
+            outp = ts.net_stats_rows_plain(*args, L)
             torch.cuda.synchronize()
             ulps = [ulp_diff(k, p) for k, p in zip(outk, outp)]
             errs = [max_abs(k, p) for k, p in zip(outk, outp)]
+            nan_members = [torch.isnan(x).nonzero().flatten().tolist()
+                           for x in outk[1:]]
             emit('kernel_vs_plain', kernel='net_stats_walk', dtype=str(dtype),
-                 n=n, b=b, pct=pct, L=L,
+                 n=n, b=b, L=L, nan_in=where,
                  max_ulp=dict(zip(('net', 'top1', 'top_hi', 'top_lo',
                                    'absmax'), ulps)),
-                 max_abs_err=max(errs), bit_equal=max(ulps) == 0)
+                 max_abs_err=max(errs), bit_equal=max(ulps) == 0,
+                 nan_members_top1_hi_lo_absmax=nan_members)
             check(max(ulps) <= ULP_BOUND,
-                  f'net_stats_walk {n}x{b} {dtype}: {max(ulps)} ulp')
+                  f'net_stats_walk {n}x{b} L={L} {dtype} NaN in {where}: '
+                  f'{max(ulps)} ulp')
+            want = [[3]] * 3 + [[3] if where == 'temp' else []]
+            check(nan_members == (want if where else [[]] * 4),
+                  f'net_stats_walk NaN in {where}: NaN members {nan_members}')
             if (n, b) == (59, 4096) and dtype == torch.float32:
                 at_main['net_stats_walk'] = max(errs)
     # NaN sentinel (tests/test_two_stream.py:181-198)
     gen = torch.Generator().manual_seed(34)
     n, b = 12, 16
     T, dtau, toa = walk_inputs(gen, n, b, torch.float32, dev)
-    zeros = torch.zeros((n + 1, b), dtype=torch.float32, device=dev)
+    T, dtau = T.T.contiguous(), dtau.T.contiguous()
+    zeros = torch.zeros((b, n + 1), dtype=torch.float32, device=dev)
     prev = zeros.clone()
-    prev[4, 3] = float('nan')
+    prev[3, 4] = float('nan')
     outk = cts.net_stats_walk(T, dtau, zeros, zeros, toa, prev, 3)
-    outp = ts.net_stats_sequential(T, dtau, zeros, zeros, toa, prev, 3)
+    outp = ts.net_stats_rows_plain(T, dtau, zeros, zeros, toa, prev, 3)
     nan_k = torch.isnan(outk[1]).cpu()
     nan_p = torch.isnan(outp[1]).cpu()
     x = torch.tensor([1.0, float('nan'), 3.0, 2.0], device=dev)
@@ -404,38 +437,56 @@ def phase_card_vs_cpu(ens, GreyGas, p_surface_earth, main, dev):
           'sampled members: equilibrium flags differ between card and CPU')
 
 
-def iso_inputs(gen, b, n, dtype, dev):
-    """SV [n+1, b] and SW [n+1] of random profiles, formed on the card as
-    ``convection._iso_rows`` forms them."""
+def iso_inputs(gen, b, n, dtype):
+    """theta [b, n] (random profiles, one per row) and v [n], on the CPU."""
     import torch
     theta = (200 + 100 * torch.rand(b, n, generator=gen, dtype=torch.float64)
-             ).to(dtype).to(dev)
+             ).to(dtype)
     v = torch.empty(n, dtype=torch.float64).uniform_(0.5, 2.0, generator=gen
-                                                     ).to(dtype).to(dev)
-    zero = torch.zeros((1, b), dtype=dtype, device=dev)
-    SV = torch.cat([zero, torch.cumsum(v[:, None] * theta.T, dim=0)])
-    SW = torch.cat([zero[0, :1], torch.cumsum(v, dim=0)])
-    return SV, SW
+                                                     ).to(dtype)
+    return theta, v
 
 
 def phase_conv_kernels(ccv, pc, dev):
-    """iso_fit (K4) against its plain version on the card, f32 and f64, at
-    the convective ensemble's width, the grey headline's, and ragged
-    shapes (phase 2b)."""
+    """iso_fit (K4) against its plain version, f32 and f64, at ISO_SHAPES,
+    with a NaN in a row and with sums the kernel must take in order (phase
+    2b).  The plain version runs on CPU
+    copies of the inputs, since its prefix-sum rule (a sequential double
+    sum) is exact there; the kernel must equal it bit for bit.  Its min-max
+    half, ``iso_fit_plain``, also runs on the card from those prefix sums
+    and must equal the kernel too."""
     import torch
     at_main = {}
     for dtype in (torch.float32, torch.float64):
         gen = torch.Generator().manual_seed(4)
-        for b, n in ISO_SHAPES:
-            SV, SW = iso_inputs(gen, b, n, dtype, dev)
-            k = ccv.iso_fit(SV, SW)
-            p = pc.iso_fit_plain(SV, SW)
+        # 'nan': a NaN in a row; 'wide': weights over 12 decades and some
+        # negative theta, whose f32 prefix sums are not provably exact in a
+        # parallel order, so the kernel takes its sequential loop
+        cases = ([(b, n, None) for b, n in ISO_SHAPES]
+                 + [(33, 40, 'nan'), (512, 149, 'nan'), (33, 200, 'wide')])
+        for b, n, case in cases:
+            theta, v = iso_inputs(gen, b, n, dtype)
+            if case == 'nan':
+                theta[b // 2, n // 3] = float('nan')
+            elif case == 'wide':
+                v = v * torch.logspace(0, -12, n, dtype=dtype)
+                theta[::3] = -theta[::3]
+            k = ccv.iso_fit(theta.to(dev), v.to(dev))
             torch.cuda.synchronize()
-            ulp, err = ulp_diff(k, p), max_abs(k, p)
+            k = k.cpu()
+            SV, SW = pc.iso_prefix_sums(theta, v)
+            p = pc.iso_rows_plain(theta, v)
+            q = pc.iso_fit_plain(SV.to(dev), SW.to(dev)).T.cpu()
+            ulp, ulp_card, err = ulp_diff(k, p), ulp_diff(k, q), max_abs(k, p)
             emit('kernel_vs_plain', kernel='iso_fit', dtype=str(dtype), b=b,
-                 n=n, max_ulp=ulp, max_abs_err=err, bit_equal=ulp == 0)
-            check(ulp <= ULP_BOUND, f'iso_fit {b}x{n} {dtype}: {ulp} ulp')
-            if (b, n) == ISO_SHAPES[0] and dtype == torch.float32:
+                 n=n, case=case, max_ulp=ulp, max_abs_err=err,
+                 bit_equal=ulp == 0, max_ulp_vs_iso_fit_plain_on_card=ulp_card,
+                 nan_entries=int(torch.isnan(k).sum()))
+            check(ulp == 0 and ulp_card == 0,
+                  f'iso_fit {b}x{n} {dtype} {case}: {ulp} ulp from the '
+                  f'plain version, {ulp_card} from iso_fit_plain on the card')
+            if (b, n, case) == ISO_SHAPES[0] + (None,) \
+                    and dtype == torch.float32:
                 at_main['iso_fit'] = err
     return at_main
 
@@ -630,7 +681,11 @@ def phase_conv_profile(ens, conv_state):
             lockstep_iterations=iters,
             device_ops_per_iteration=sum(r[1] for r in rows) / iters,
             top_kernels_ms=[[k[:60], round(t / 1e3, 3), c] for t, c, k in
-                            sorted(rows, reverse=True)[:6]])
+                            sorted(rows, reverse=True)[:6]],
+            # every scan on the path (torch.cumsum and kin), by name
+            scan_kernels_ms=[[k[:90], round(t / 1e3, 3), c]
+                             for t, c, k in rows if 'scan' in k.lower()
+                             or 'cumsum' in k.lower()])
     emit('conv_profile', **res)
 
 
@@ -1083,9 +1138,10 @@ def timed_pair(kern, plain):
 
 
 def phase_times(cts, ts, ccv, pc, dev, probe):
-    """Every kernel against its plain version, CUDA events (phase 5): K1 and
-    K3 at 4096 x 59, K4 at the convective ensemble's 512 x 149 and at
-    4096 x 59, K7 on the probe's inputs beside ``torch.div``.  Each entry
+    """Every kernel against its plain version, CUDA events (phase 5): K1 at
+    4096 x 59, K3 at 4096 x 59 and at the convective ensemble's 512 x 149,
+    K4 at 512 x 149 and at 4096 x 59, K7 on the probe's inputs beside
+    ``torch.div``.  Each entry
     carries its bound: the larger of the bytes the function must move (each
     input read once, each output written once) over the card's memory rate
     and its f32 operations (a division or an exp counted as one) over the
@@ -1094,36 +1150,37 @@ def phase_times(cts, ts, ccv, pc, dev, probe):
     gen = torch.Generator().manual_seed(5)
     n, b = 59, HEADLINE['members']
     T, dtau, toa = walk_inputs(gen, n, b, torch.float32, dev)
-    r = lambda *s: torch.rand(*s, generator=gen).to(dev)  # noqa: E731
-    usw, dsw, prev = 100 * r(n + 1, b), 300 * r(n + 1, b), r(n + 1, b)
-    L = ts.topk_depth(n + 1, 95)
     res = {
         'lw_walk': dict(timed_pair(
             lambda: cts.lw_walk(T, dtau, toa),
             lambda: ts.lw_flux_sequential(T, dtau, toa)), n=n, b=b),
-        'net_stats_walk': dict(timed_pair(
-            lambda: cts.net_stats_walk(T, dtau, usw, dsw, toa, prev, L),
-            lambda: ts.net_stats_sequential(T, dtau, usw, dsw, toa, prev, L)),
-            n=n, b=b),
     }
     # per level: T^2, T^4, sigma*, 2 exp, 2 x (mul, sub, mul, add)
-    walk_ops = 13 * n * b
     res['lw_walk']['bound'] = bound(
-        4 * (2 * n * b + b + 2 * (n + 1) * b), walk_ops)
-    # + per interface: the net (3), |net - prev| (2), the L-deep insertion
-    # (2 per slot), |net| and its max (2)
-    res['net_stats_walk']['bound'] = bound(
-        4 * (2 * n * b + 3 * (n + 1) * b + b + (n + 1) * b + 4 * b),
-        walk_ops + (n + 1) * b * (7 + 2 * L))
+        4 * (2 * n * b + b + 2 * (n + 1) * b), 13 * n * b)
+    for n_, b_ in ((n, b), (CONV['nz'] - 1, CONV['members'])):
+        args = stats_rows(gen, n_, b_, torch.float32, dev)
+        L = ts.topk_depth(n_ + 1, 95)
+        key = 'net_stats_walk' if b_ == b else f'net_stats_walk_{n_}x{b_}'
+        res[key] = dict(timed_pair(
+            lambda: cts.net_stats_walk(*args, L),
+            lambda: ts.net_stats_rows_plain(*args, L)), n=n_, b=b_, L=L,
+            # the walk, + per interface: the net (3), |net - prev| (2),
+            # |net| and its max (2), a comparison with each of the L kept
+            bound=bound(4 * (2 * n_ * b_ + 3 * (n_ + 1) * b_ + b_
+                             + (n_ + 1) * b_ + 4 * b_),
+                        13 * n_ * b_ + (n_ + 1) * b_ * (7 + L)))
     gen = torch.Generator().manual_seed(6)
     for b_, n_ in ISO_SHAPES[:2]:
-        SV, SW = iso_inputs(gen, b_, n_, torch.float32, dev)
+        theta, v = (x.to(dev) for x in iso_inputs(gen, b_, n_, torch.float32))
         res[f'iso_fit_{b_}x{n_}'] = dict(timed_pair(
-            lambda: ccv.iso_fit(SV, SW), lambda: pc.iso_fit_plain(SV, SW)),
+            lambda: ccv.iso_fit(theta, v), lambda: pc.iso_rows_plain(theta, v)),
             b=b_, n=n_,
-            # per (s <= t) pair: two subtractions, the division, min, max
-            bound=bound(4 * ((n_ + 1) * b_ + (n_ + 1) + n_ * b_),
-                        5 * b_ * n_ * (n_ + 1) // 2))
+            # theta and v read, the fit written; the products v * theta and
+            # the prefix sums' adds, and per (s <= t) pair two subtractions,
+            # the division, min, max
+            bound=bound(4 * (2 * b_ * n_ + n_),
+                        2 * b_ * n_ + n_ + 5 * b_ * n_ * (n_ + 1) // 2))
     a, bb = probe['a'], probe['b']
     res['div_probe'] = dict(
         timed_pair(lambda: ccv.div_probe(a, bb),

@@ -29,10 +29,13 @@ package's ``vmap`` over columns is that leading axis here.
 
         theta'_i = max_{s<=i} min_{t>=i} (SV[t+1] - SV[s]) / (SW[t+1] - SW[s])
 
-    from prefix sums SV (of v theta) and SW (of v).  The prefix sums are
-    ``torch.cumsum`` here; the min-max step is the ``iso_fit`` CUDA kernel
-    (ops/csrc/convection.cu, the Pallas ``_iso_kernel``) for CUDA tensors and
-    :func:`iso_fit_plain` for CPU tensors.
+    from prefix sums SV (of v theta) and SW (of v).  The prefix sums follow
+    one rule on every device (:func:`iso_prefix_sums`: a sequential double
+    sum, rounded to the dtype at each entry), because the fit amplifies
+    their rounding by sum(v) / min(v).  CUDA tensors take the ``iso_fit``
+    kernel (ops/csrc/convection.cu, the Pallas ``_iso_kernel`` with its
+    prefix sums), which forms the sums itself; CPU tensors take
+    :func:`iso_rows_plain` (the sums, then :func:`iso_fit_plain`).
 """
 from __future__ import annotations
 
@@ -212,20 +215,34 @@ def iso_fit_plain(SV, SW):
     return torch.diagonal(torch.cummax(M, dim=0).values).T.contiguous()
 
 
-def _iso_rows(theta, v):
-    """[C, n] weighted non-decreasing isotonic fits with shared weights v
-    [n].  CPU tensors take :func:`iso_fit_plain`, CUDA tensors the
-    ``iso_fit`` kernel (which raises where it cannot launch)."""
+def iso_prefix_sums(theta, v):
+    """(SV [n+1, C], SW [n+1]) of [C, n] rows with shared weights v [n], by
+    the rule the ``iso_fit`` kernel follows: v * theta rounded in the
+    dtype, then a sequential sum in double with each partial sum rounded to
+    the dtype (row 0 zero).  Exact on the CPU, where ``torch.cumsum`` sums
+    in order (a CUDA scan would round otherwise)."""
     C, n = theta.shape
     zero = torch.zeros((1, C), dtype=theta.dtype, device=theta.device)
-    SV = torch.cat([zero, torch.cumsum(v[:, None] * theta.T, dim=0)])
-    SW = torch.cat([zero[0, :1], torch.cumsum(v, dim=0)])
+    SV = torch.cumsum(v * theta, dim=1, dtype=torch.float64).to(theta.dtype)
+    SW = torch.cumsum(v, dim=0, dtype=torch.float64).to(theta.dtype)
+    return torch.cat([zero, SV.T]), torch.cat([zero[0, :1], SW])
+
+
+def iso_rows_plain(theta, v):
+    """Plain PyTorch version of the ``iso_fit`` kernel (K4): the [C, n]
+    isotonic fits of [C, n] rows with shared weights v [n],
+    :func:`iso_prefix_sums` then :func:`iso_fit_plain`."""
+    return iso_fit_plain(*iso_prefix_sums(theta, v)).T
+
+
+def _iso_rows(theta, v):
+    """[C, n] weighted non-decreasing isotonic fits with shared weights v
+    [n].  CPU tensors take :func:`iso_rows_plain`, CUDA tensors the
+    ``iso_fit`` kernel (which raises where it cannot launch)."""
     if theta.device.type == 'cpu':
-        out = iso_fit_plain(SV, SW)
-    else:
-        from .cuda_convection import iso_fit
-        out = iso_fit(SV, SW)
-    return out.T
+        return iso_rows_plain(theta, v)
+    from .cuda_convection import iso_fit
+    return iso_fit(theta, v)
 
 
 def _segment_abs_max(dT, changed):

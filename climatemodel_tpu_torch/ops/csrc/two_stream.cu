@@ -6,20 +6,36 @@
 //   net_stats_walk  <- _net_stats_kernel (grey_net_stats_lanes, K3)
 //
 // What bounds them on this card: each member column is a sequential
-// recurrence over nz-1 levels, so the walk is a dependency chain of
-// ~nz * (2 exp + 6 flops) per member, with 2-4 loads and 2 stores of one
-// word per level.  At the headline size (4096 members x 59 cells) that is a
-// few MB per call: far below what the memory system moves in the time the
-// chain takes, so the kernel is latency-bound on the chain and on how few
-// members there are to hide it (4096 threads = 32 blocks of 128 on 132 SMs).
+// recurrence over its n cells, x = x * e + s for the up and the down
+// stream, so a member is a dependency chain of n (mul, add) pairs; the
+// bytes (2-5 words per level in, 1-2 out) are a few MB per call at the
+// headline size (4096 members x 59 cells), far below what the memory
+// system moves in the time the chain takes.
 //
-// What the design does about it: one thread per member column keeps the
-// whole walk (and K3's L-deep sorted top-k) in registers; the level loop
-// runs inside the thread.  Arrays are [n, b] with the member index
-// contiguous, so every row's loads and stores coalesce across a warp.  The
-// TPU kernel's (8,128) sublane packing has no meaning here, so K1 and K2
-// are one kernel.  Filling the card (more members per SM, or splitting the
-// walk) is left to later work.
+// lw_walk: one thread per member column keeps the whole walk in registers;
+// arrays are [n, b] with the member index contiguous, so every row's loads
+// and stores coalesce across a warp.  The TPU kernel's (8,128) sublane
+// packing has no meaning here, so K1 and K2 are one kernel.
+//
+// net_stats_walk: one warp per member, on the march's own [b, r] rows (a
+// member's column contiguous), in three phases over a per-warp slice of
+// shared memory:
+//  1. lanes over levels (coalesced): T*T, sigma*(T^2*T^2), exp(+-dtau) and
+//     src*(1-e) of every level, everything that is off the chain; the sw
+//     fluxes and prev_net are staged beside them, so every device load is
+//     in flight at once, before the chain starts;
+//  2. the two affine chains, lane 0 up and lane 1 down, each a (mul, add)
+//     per level from shared memory in the plain version's order (handing a
+//     carry from lane to lane would add a shuffle per hop and save nothing:
+//     the chain is sequential either way);
+//  3. lanes over interfaces: net, |net - prev| and |net| in parallel,
+//     max|net| by a warp reduction, and the top-L of |net - prev| by rounds
+//     of a warp max: each round takes the largest value left, counts its
+//     copies (__reduce_add_sync) and removes them, so L rounds at most give
+//     the exact order statistics with their multiplicity.
+// The earlier kernel walked a member per thread on [r, b] copies made by
+// the caller: 4 of 132 SMs busy at 512 members, a device load latency per
+// level.
 //
 // Rounding: every product and sum is rounded on its own (__fmul_rn etc.,
 // and the build passes -fmad=false) and exp is the accurate expf/exp, so
@@ -27,9 +43,16 @@
 // ops/two_stream.py: x * e + s * (1 - e), s = sigma * (T^2 * T^2),
 // net = ((up - down) + up_sw) - down_sw.
 //
-// NaN: jnp.maximum/jnp.minimum propagate NaN and the march's NaN sentinel
-// (a NaN top_1) depends on it; fmaxf/fminf drop NaN, so the top-k insertion
-// network uses the NaN-propagating nan_max/nan_min below.
+// NaN: the Pallas kernel's sorted insertion from NaN-propagating max/min
+// turns every one of its L slots into NaN once a NaN is inserted, and the
+// march's NaN sentinel (a NaN top_1) depends on it.  net_stats_walk gives
+// exactly that: a NaN anywhere in a member's |net - prev| makes top_1,
+// top_{L-1} and top_L NaN; max|net| is a NaN-propagating max of its own.
+// lw_walk has no selection.
+//
+// Shared memory of net_stats_walk: 7 (n + 1) values a member (8.4 KB at
+// n = 149 in f64); above 48 KB (n > ~875 in f64) the launch opts in to the
+// larger dynamic size.
 //
 // C interface (ctypes): pointers and the stream as void*, sizes as int.
 // Every entry point returns cudaGetLastError() after its launch.
@@ -40,10 +63,20 @@
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kWarp = 32;
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMinL = 2;
 constexpr int kMaxL = 32;
+constexpr int kStaticSmem = 48 * 1024;
+constexpr int kMaxSmem = 232448;          // what a block may opt in to
 constexpr double kSigma = 5.670367e-8;   // constants.sigma
 
+template <typename T> struct PairOf;
+template <> struct PairOf<float> { using type = float2; };
+template <> struct PairOf<double> { using type = double2; };
+
+__device__ __forceinline__ float2 make_pair(float a, float b) { return make_float2(a, b); }
+__device__ __forceinline__ double2 make_pair(double a, double b) { return make_double2(a, b); }
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
@@ -57,8 +90,6 @@ __device__ __forceinline__ double abs_(double x) { return fabs(x); }
 
 template <typename T>
 __device__ __forceinline__ T nan_max(T a, T b) { return (isnan(a) || a > b) ? a : b; }
-template <typename T>
-__device__ __forceinline__ T nan_min(T a, T b) { return (isnan(a) || a < b) ? a : b; }
 
 // One level of the walk from interface i+1 to interface i.
 template <typename T>
@@ -90,50 +121,152 @@ lw_walk_kernel(const T* __restrict__ temp, const T* __restrict__ dtau,
   }
 }
 
-template <typename T, int L>
-struct TopL {
-  T regs[L];
-  __device__ __forceinline__ void init() {
+// x = x * e + s down the levels i = n-1 .. 0 of one stream, c[i] = (e, s)
+// on entry and c[i].x = x on exit (c[n].x = the top value).  Eight pairs
+// are loaded ahead of their steps; the chain is the (mul, add) alone.
+template <typename P, typename T>
+__device__ __forceinline__ void affine_chain(P* c, T x, int n) {
+  c[n].x = x;
+  int i = n - 1;
+  for (; i >= 7; i -= 8) {
+    P es[8];
 #pragma unroll
-    for (int r = 0; r < L; ++r) regs[r] = -INFINITY;
-  }
-  // sorted-descending insertion from min/max only (pallas_two_stream.py:92-95)
-  __device__ __forceinline__ void insert(T x) {
+    for (int k = 0; k < 8; ++k) es[k] = c[i - k];
 #pragma unroll
-    for (int r = 0; r < L; ++r) {
-      const T hi = nan_max(regs[r], x);
-      x = nan_min(regs[r], x);
-      regs[r] = hi;
+    for (int k = 0; k < 8; ++k) {
+      x = add_rn(mul_rn(x, es[k].x), es[k].y);
+      c[i - k].x = x;
     }
   }
-};
+  for (; i >= 0; --i) {
+    const P es = c[i];
+    x = add_rn(mul_rn(x, es.x), es.y);
+    c[i].x = x;
+  }
+}
 
-template <typename T, int L>
-__global__ void __launch_bounds__(kThreads)
+template <typename T>
+__device__ __forceinline__ T warp_max(T x) {          // no NaN in x
+#pragma unroll
+  for (int off = kWarp / 2; off > 0; off /= 2) {
+    const T o = __shfl_xor_sync(kFull, x, off);
+    x = o > x ? o : x;
+  }
+  return x;
+}
+
+template <typename T>
+__device__ __forceinline__ T warp_nan_max(T x) {
+#pragma unroll
+  for (int off = kWarp / 2; off > 0; off /= 2)
+    x = nan_max(x, __shfl_xor_sync(kFull, x, off));
+  return x;
+}
+
+// The 1st, (L-1)-th and L-th largest of x[0..r-1] (no NaN), counted with
+// multiplicity, -inf where fewer than L values are left: rounds of a warp
+// max, each removing every copy of the value it found.  Lane i holds the
+// entries i, i + 32, ...; x is overwritten.
+template <typename T>
+__device__ void top_l(T* x, int r, int L, int lane, T& top1, T& hi, T& lo) {
+  const T ninf = static_cast<T>(-INFINITY);
+  int rank = 0;
+  while (rank < L) {                          // rank, mx, c: uniform
+    T mx = ninf;
+    for (int i = lane; i < r; i += kWarp) mx = x[i] > mx ? x[i] : mx;
+    mx = warp_max(mx);
+    if (!(mx > ninf)) return;                 // the remaining slots stay -inf
+    int c = 0;
+    for (int i = lane; i < r; i += kWarp)
+      if (x[i] == mx) {
+        ++c;
+        x[i] = ninf;
+      }
+    c = __reduce_add_sync(kFull, c);
+    if (rank == 0) top1 = mx;
+    if (rank <= L - 2 && L - 2 < rank + c) hi = mx;
+    if (rank <= L - 1 && L - 1 < rank + c) lo = mx;
+    rank += c;
+  }
+}
+
+// Shared memory of one member (one warp, one block): the (e, s) pairs of
+// both streams and the sw fluxes and prev_net of its r = n + 1 interfaces.
+template <typename T>
+size_t net_stats_smem(int n) {
+  return (size_t)(n + 1) * (2 * sizeof(typename PairOf<T>::type) + 3 * sizeof(T));
+}
+
+// 32 one-warp blocks an SM (the most it schedules): at most 64 registers a
+// thread, so 4096 members are one wave on 132 SMs.
+template <typename T>
+__global__ void __launch_bounds__(kWarp, 32)
 net_stats_walk_kernel(const T* __restrict__ temp, const T* __restrict__ dtau,
                       const T* __restrict__ usw, const T* __restrict__ dsw,
                       const T* __restrict__ toa, const T* __restrict__ prev,
                       T* __restrict__ net_out, T* __restrict__ stats, int n,
-                      int b) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= b) return;
-  T up = toa[j];
-  T down = static_cast<T>(0);
-  T amax = -INFINITY;
-  TopL<T, L> top;
-  top.init();
-  for (int i = n; i >= 0; --i) {
-    const size_t k = (size_t)i * b + j;
-    if (i < n) walk_level(up, down, temp[k], dtau[k]);
-    const T net = sub_rn(add_rn(sub_rn(up, down), usw[k]), dsw[k]);
-    net_out[k] = net;
-    top.insert(abs_(sub_rn(net, prev[k])));
+                      int b, int L) {
+  using P = typename PairOf<T>::type;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int r = n + 1;
+  P* up = reinterpret_cast<P*>(smem);     // (e, s) per level, then up
+  P* dn = up + r;                         // the same for the down stream
+  T* sw_up = reinterpret_cast<T*>(dn + r);
+  T* sw_dn = sw_up + r;
+  T* delta = sw_dn + r;                   // prev_net, then |net - prev|
+  const int m = blockIdx.x;
+  const int lane = threadIdx.x;
+  const size_t cells = (size_t)m * n;
+  const size_t faces = (size_t)m * r;
+  const T one = static_cast<T>(1);
+
+  // 1. off the chain, lanes over levels
+  for (int i = lane; i < n; i += kWarp) {
+    const T t = temp[cells + i];
+    const T d = dtau[cells + i];
+    const T sq = mul_rn(t, t);
+    const T src = mul_rn(static_cast<T>(kSigma), mul_rn(sq, sq));
+    const T ep = exp_acc(d);
+    const T em = exp_acc(-d);
+    up[i] = make_pair(ep, mul_rn(src, sub_rn(one, ep)));
+    dn[i] = make_pair(em, mul_rn(src, sub_rn(one, em)));
+  }
+  for (int i = lane; i < r; i += kWarp) {
+    sw_up[i] = usw[faces + i];
+    sw_dn[i] = dsw[faces + i];
+    delta[i] = prev[faces + i];
+  }
+  __syncwarp();
+
+  // 2. the chains: lane 0 walks up from the TOA flux, lane 1 down from 0
+  if (lane < 2)
+    affine_chain(lane == 0 ? up : dn, lane == 0 ? toa[m] : static_cast<T>(0),
+                 n);
+  __syncwarp();
+
+  // 3. net and the statistics, lanes over interfaces
+  T amax = static_cast<T>(-INFINITY);
+  bool has_nan = false;
+  for (int i = lane; i < r; i += kWarp) {
+    const T net = sub_rn(add_rn(sub_rn(up[i].x, dn[i].x), sw_up[i]), sw_dn[i]);
+    net_out[faces + i] = net;
+    const T d = abs_(sub_rn(net, delta[i]));
+    delta[i] = d;
+    has_nan |= isnan(d);
     amax = nan_max(amax, abs_(net));
   }
-  stats[j] = top.regs[0];                        // top_1: NaN sentinel / max
-  stats[(size_t)b + j] = top.regs[L - 2];        // top_{L-1}
-  stats[(size_t)2 * b + j] = top.regs[L - 1];    // top_L
-  stats[(size_t)3 * b + j] = amax;               // max |net|
+  amax = warp_nan_max(amax);
+  T top1 = static_cast<T>(-INFINITY), hi = top1, lo = top1;
+  if (__any_sync(kFull, has_nan))
+    top1 = hi = lo = static_cast<T>(NAN);
+  else
+    top_l(delta, r, L, lane, top1, hi, lo);
+  if (lane == 0) {
+    stats[m] = top1;                      // top_1: NaN sentinel / max
+    stats[(size_t)b + m] = hi;            // top_{L-1}
+    stats[(size_t)2 * b + m] = lo;        // top_L
+    stats[(size_t)3 * b + m] = amax;      // max |net|
+  }
 }
 
 inline int blocks_for(int b) { return (b + kThreads - 1) / kThreads; }
@@ -146,30 +279,26 @@ int launch_lw_walk(const void* temp, const void* dtau, const void* toa,
   return (int)cudaGetLastError();
 }
 
-// Dispatch the runtime top-k depth onto the template instances kMinL..kMaxL.
-template <typename T, int L>
-struct NetStatsLauncher {
-  static int launch(int l, const void* temp, const void* dtau, const void* usw,
-                    const void* dsw, const void* toa, const void* prev,
-                    void* net, void* stats, int n, int b, void* stream) {
-    if (l != L)
-      return NetStatsLauncher<T, L + 1>::launch(l, temp, dtau, usw, dsw, toa,
-                                                prev, net, stats, n, b, stream);
-    net_stats_walk_kernel<T, L>
-        <<<blocks_for(b), kThreads, 0, (cudaStream_t)stream>>>(
-            (const T*)temp, (const T*)dtau, (const T*)usw, (const T*)dsw,
-            (const T*)toa, (const T*)prev, (T*)net, (T*)stats, n, b);
-    return (int)cudaGetLastError();
-  }
-};
-
 template <typename T>
-struct NetStatsLauncher<T, kMaxL + 1> {
-  static int launch(int, const void*, const void*, const void*, const void*,
-                    const void*, const void*, void*, void*, int, int, void*) {
+int launch_net_stats_walk(const void* temp, const void* dtau, const void* usw,
+                          const void* dsw, const void* toa, const void* prev,
+                          void* net, void* stats, int n, int b, int l,
+                          void* stream) {
+  if (n < 0 || b < 1 || l < kMinL || l > kMaxL || l > n + 1)
     return (int)cudaErrorInvalidValue;
+  const size_t smem = net_stats_smem<T>(n);
+  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  if (smem > (size_t)kStaticSmem) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        net_stats_walk_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
   }
-};
+  net_stats_walk_kernel<T><<<b, kWarp, smem, (cudaStream_t)stream>>>(
+      (const T*)temp, (const T*)dtau, (const T*)usw, (const T*)dsw,
+      (const T*)toa, (const T*)prev, (T*)net, (T*)stats, n, b, l);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -191,18 +320,16 @@ int net_stats_walk_f32(const void* temp, const void* dtau, const void* usw,
                        const void* dsw, const void* toa, const void* prev,
                        void* net, void* stats, int n, int b, int l,
                        void* stream) {
-  if (l < kMinL) return (int)cudaErrorInvalidValue;
-  return NetStatsLauncher<float, kMinL>::launch(l, temp, dtau, usw, dsw, toa,
-                                                prev, net, stats, n, b, stream);
+  return launch_net_stats_walk<float>(temp, dtau, usw, dsw, toa, prev, net,
+                                      stats, n, b, l, stream);
 }
 
 int net_stats_walk_f64(const void* temp, const void* dtau, const void* usw,
                        const void* dsw, const void* toa, const void* prev,
                        void* net, void* stats, int n, int b, int l,
                        void* stream) {
-  if (l < kMinL) return (int)cudaErrorInvalidValue;
-  return NetStatsLauncher<double, kMinL>::launch(l, temp, dtau, usw, dsw, toa,
-                                                 prev, net, stats, n, b, stream);
+  return launch_net_stats_walk<double>(temp, dtau, usw, dsw, toa, prev, net,
+                                       stats, n, b, l, stream);
 }
 
 }  // extern "C"

@@ -2,10 +2,10 @@
 (``csrc/convection.cu``).
 
 * :func:`iso_fit` replaces ``isotonic_increasing_lanes`` /
-  ``_iso_kernel`` (climatemodel_tpu/ops/pallas_isotonic.py, K4): the
-  min-max step of the isotonic fit, from prefix sums computed by the
-  caller (``convection._iso_rows``), as the Pallas wrapper computes them
-  outside ``pallas_call``.
+  ``_iso_kernel`` (climatemodel_tpu/ops/pallas_isotonic.py, K4): the whole
+  isotonic fit of [C, n] rows, the prefix sums that the Pallas wrapper
+  forms outside ``pallas_call`` included (by the CPU's rule, see
+  ``convection.iso_prefix_sums``).
 * :func:`div_probe` replaces ``via_pallas`` (tools/probe_mosaic_div.py, K7).
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
@@ -52,36 +52,37 @@ def library() -> ctypes.CDLL:
 
 
 def max_levels() -> int:
-    """Largest n the iso_fit kernel holds in registers."""
+    """Largest n the iso_fit kernel takes (one thread per level)."""
     return int(library().iso_fit_max_levels())
 
 
-def iso_fit(SV, SW):
-    """The min-max isotonic step of K4 with the batch on the LAST axis.
+def iso_fit(theta, v):
+    """The weighted non-decreasing isotonic fit of every row (K4).
 
-    :param SV: [n+1, b] per-member prefix sums of v * theta (row 0 zero).
-    :param SW: [n+1] shared prefix sums of v (row 0 zero).
-    :return: [n, b] fits, as ``convection.iso_fit_plain``.
+    :param theta: [C, n] rows (a member's levels contiguous), f32 or f64.
+    :param v: [n] shared positive weights.
+    :return: [C, n] fits, as ``convection.iso_rows_plain`` gives them on
+        the CPU, bit for bit.
     """
-    if SV.dtype not in _SUFFIX:
-        raise ValueError(f'iso_fit: unsupported dtype {SV.dtype}')
-    if SV.ndim != 2 or SV.shape[0] < 2:
-        raise ValueError(f'iso_fit: SV must be [n+1, b] with n >= 1, got '
-                         f'{tuple(SV.shape)}')
-    n1, b = SV.shape
-    _check('SV', SV, (n1, b), SV)
-    _check('SW', SW, (n1,), SV)
+    if theta.dtype not in _SUFFIX:
+        raise ValueError(f'iso_fit: unsupported dtype {theta.dtype}')
+    if theta.ndim != 2 or theta.shape[1] < 1:
+        raise ValueError(f'iso_fit: theta must be [C, n] with n >= 1, got '
+                         f'{tuple(theta.shape)}')
+    C, n = theta.shape
+    _check('theta', theta, (C, n), theta)
+    _check('v', v, (n,), theta)
     lib = library()
-    if n1 - 1 > max_levels():
-        raise ValueError(f'iso_fit: n={n1 - 1} levels exceed the kernel\'s '
-                         f'register limit of {max_levels()} levels')
-    out = torch.empty((n1 - 1, b), dtype=SV.dtype, device=SV.device)
-    if b == 0:
+    if n > max_levels():
+        raise ValueError(f'iso_fit: n={n} levels exceed the kernel\'s limit '
+                         f'of {max_levels()} levels')
+    out = torch.empty((C, n), dtype=theta.dtype, device=theta.device)
+    if C == 0:
         return out
-    with torch.cuda.device(SV.device):
-        stream = torch.cuda.current_stream(SV.device).cuda_stream
-        err = getattr(lib, f'iso_fit_{_SUFFIX[SV.dtype]}')(
-            SV.data_ptr(), SW.data_ptr(), out.data_ptr(), n1 - 1, b, stream)
+    with torch.cuda.device(theta.device):
+        stream = torch.cuda.current_stream(theta.device).cuda_stream
+        err = getattr(lib, f'iso_fit_{_SUFFIX[theta.dtype]}')(
+            theta.data_ptr(), v.data_ptr(), out.data_ptr(), n, C, stream)
     _raise_on(err, 'iso_fit')
     launch_counts['iso_fit'] += 1
     return out

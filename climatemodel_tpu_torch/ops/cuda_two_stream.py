@@ -6,8 +6,10 @@ Port of ``climatemodel_tpu/ops/pallas_two_stream.py``:
   packed kernel, one kernel on Hopper);
 * :func:`net_stats_walk` replaces ``grey_net_stats_lanes`` (K3).
 
-Both take the batch on the LAST axis ([n, b], member index contiguous), as
-the Pallas kernels do.  Each wrapper checks device, dtype, shape and
+:func:`lw_walk` takes the batch on the LAST axis ([n, b], member index
+contiguous), as the Pallas kernels do; :func:`net_stats_walk` takes the
+march's own rows ([b, n], a member's column contiguous), so the march hands
+its carries over without a copy.  Each wrapper checks device, dtype, shape and
 contiguity, allocates its outputs with ``torch.empty``, launches on the
 current stream, raises if the launch failed, and adds one to its entry of
 :data:`launch_counts`.  They never compute on the CPU: the plain twins live
@@ -104,29 +106,29 @@ def lw_walk(T, dtau, up_flux_toa):
 
 
 def net_stats_walk(T, dtau, up_sw, down_sw, up_toa, prev_net, L):
-    """Fused net flux + exit statistics with the batch on the LAST axis (K3).
+    """Fused net flux + exit statistics, one member per ROW (K3).
 
-    :param T, dtau: [n, b] cell values (index 0 = surface), f32 or f64.
-    :param up_sw, down_sw, prev_net: [n+1, b] interface values.
+    :param T, dtau: [b, n] cell values (index 0 = surface), f32 or f64.
+    :param up_sw, down_sw, prev_net: [b, n+1] interface values.
     :param up_toa: [b] TOA upward lw boundary condition.
-    :param L: top-k depth, 2 <= L <= :func:`max_topk`.
-    :return: (net [n+1, b], top1 [b], top_hi [b], top_lo [b], absmax [b]) —
-        as ``two_stream.net_stats_sequential``.
+    :param L: top-k depth, 2 <= L <= min(:func:`max_topk`, n+1).
+    :return: (net [b, n+1], top1 [b], top_hi [b], top_lo [b], absmax [b]) —
+        as ``two_stream.net_stats_rows_plain``.
     """
     if T.dtype not in _SUFFIX:
         raise ValueError(f'net_stats_walk: unsupported dtype {T.dtype}')
-    n, b = T.shape
-    _check('T', T, (n, b), T)
-    _check('dtau', dtau, (n, b), T)
+    b, n = T.shape
+    _check('T', T, (b, n), T)
+    _check('dtau', dtau, (b, n), T)
     for name, x in (('up_sw', up_sw), ('down_sw', down_sw),
                     ('prev_net', prev_net)):
-        _check(name, x, (n + 1, b), T)
+        _check(name, x, (b, n + 1), T)
     _check('up_toa', up_toa, (b,), T)
     lib = library()
-    if not 2 <= L <= max_topk():
-        raise ValueError(f'net_stats_walk: top-k depth {L} outside the '
-                         f'kernel instances 2..{max_topk()}')
-    net = torch.empty((n + 1, b), dtype=T.dtype, device=T.device)
+    if not 2 <= L <= min(max_topk(), n + 1):
+        raise ValueError(f'net_stats_walk: top-k depth {L} outside '
+                         f'2..{min(max_topk(), n + 1)}')
+    net = torch.empty((b, n + 1), dtype=T.dtype, device=T.device)
     stats = torch.empty((4, b), dtype=T.dtype, device=T.device)
     if b > 0:
         with torch.cuda.device(T.device):

@@ -10,7 +10,7 @@ The long-wave fluxes follow the reference's sequential per-level loop
 with up = net absorbed stellar flux and down = 0 at the top of the
 atmosphere.  Each function that holds a kernel dispatches on the device of
 its tensors: a CPU tensor takes the plain PyTorch version beside the kernel
-(:func:`lw_flux_sequential`, :func:`net_stats_sequential`); any other
+(:func:`lw_flux_sequential`, :func:`net_stats_rows_plain`); any other
 device goes to the CUDA kernel in ``ops/cuda_two_stream.py``, which raises
 where it cannot launch.  There is no fallback from the kernel to the plain
 version.
@@ -124,7 +124,8 @@ def _stats(net, prev_net, L):
 
 def net_stats_sequential(T, dtau, up_sw, down_sw, up_toa, prev_net, L):
     """Plain PyTorch twin of the ``net_stats_walk`` kernel (K3), with the
-    batch on the last axis like the kernel.
+    batch on the last axis like the Pallas kernel (the CUDA kernel takes
+    rows: :func:`net_stats_rows_plain`).
 
     :param T, dtau: [n, b] cells (index 0 = surface).
     :param up_sw, down_sw, prev_net: [n+1, b] interfaces.
@@ -132,12 +133,29 @@ def net_stats_sequential(T, dtau, up_sw, down_sw, up_toa, prev_net, L):
     :param L: top-k depth (>= 2).
     :return: (net [n+1, b], top1, top_hi, top_lo, absmax) — net =
         ((up - down) + up_sw) - down_sw; top_* the 1st, (L-1)-th and L-th
-        largest of |net - prev| per member; absmax = max|net|.
+        largest of |net - prev| per member (all three NaN where it holds a
+        NaN); absmax = max|net|.
     """
     up, down = lw_flux_sequential(T, dtau, up_toa)
     net = up - down + up_sw - down_sw
     top1, hi, lo, absmax = _stats(net.T, prev_net.T, L)
-    return net, top1, hi, lo, absmax
+    # the kernel's selection (the Pallas kernel's sorted insertion): a NaN
+    # in a member's |net - prev| makes every order statistic NaN
+    nan = torch.isnan(top1)
+    return (net, top1, torch.where(nan, top1, hi), torch.where(nan, top1, lo),
+            absmax)
+
+
+def net_stats_rows_plain(T, dtau, up_sw, down_sw, up_toa, prev_net, L):
+    """Plain PyTorch version of the ``net_stats_walk`` kernel (K3) in the
+    kernel's layout, one member per ROW: :func:`net_stats_sequential` on
+    transposed views.
+
+    :param T, dtau: [b, n]; up_sw, down_sw, prev_net: [b, n+1]; up_toa: [b].
+    :return: (net [b, n+1], top1, top_hi, top_lo, absmax)."""
+    net, top1, hi, lo, absmax = net_stats_sequential(
+        T.T, dtau.T, up_sw.T, down_sw.T, up_toa, prev_net.T, L)
+    return net.T, top1, hi, lo, absmax
 
 
 def grey_net_with_stats(T, dtau, up_toa, up_sw, down_sw, prev_net, pct=95):
@@ -157,16 +175,16 @@ def grey_net_with_stats(T, dtau, up_toa, up_sw, down_sw, prev_net, pct=95):
     B, nlev, ny = T.shape
     L = topk_depth((nlev + 1) * ny, pct)
     if ny == 1:
-        def lanes(x):
-            return x[:, :, 0].T.contiguous()           # [B, r, 1] -> [r, B]
-        args = (lanes(T), lanes(dtau), lanes(up_sw), lanes(down_sw),
-                up_toa[:, 0].contiguous(), lanes(prev_net), L)
+        def rows(x):        # [B, r, 1] -> [B, r]: a view of the march's carry
+            return x[:, :, 0].contiguous()
+        args = (rows(T), rows(dtau), rows(up_sw), rows(down_sw),
+                up_toa[:, 0].contiguous(), rows(prev_net), L)
         if T.device.type == 'cpu':
-            net, top1, hi, lo, absmax = net_stats_sequential(*args)
+            net, top1, hi, lo, absmax = net_stats_rows_plain(*args)
         else:
             from .cuda_two_stream import net_stats_walk
             net, top1, hi, lo, absmax = net_stats_walk(*args)
-        return net.T[:, :, None], top1, hi, lo, absmax
+        return net[:, :, None], top1, hi, lo, absmax
     up, down = lw_flux(T.movedim(0, 1), dtau.movedim(0, 1), up_toa)
     net = up.movedim(1, 0) - down.movedim(1, 0) + up_sw - down_sw
     return (net,) + _stats(net, prev_net, L)

@@ -35,6 +35,15 @@ from climatemodel_tpu_torch.utils import interop
 from test_convection import _descending_p, _oracle_single, _random_profile
 from test_torch_column import lockstep_march
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the test workers share the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 THERMOSPHERE = grey_world_kwargs('thermosphere')
 DTYPES = {'f64': (jnp.float64, torch.float64),
           'f32': (jnp.float32, torch.float32)}
@@ -271,6 +280,74 @@ def test_iso_rows_end_to_end_within_prefix_sum_bound(b, n, dtype):
     print(f'{dtype} {b}x{n}: {err:.3g} (bound {bound:.3g})')
     assert err <= bound
     assert (np.diff(got, axis=1) >= 0).all()     # non-decreasing fits
+
+
+@pytest.mark.parametrize('dtype', ['f32', 'f64'])
+def test_iso_prefix_sums_follow_the_sequential_f64_rule(dtype):
+    """The prefix-sum rule the iso_fit kernel follows on the card and its
+    plain version on the CPU: v * theta rounded in the dtype, then a
+    sequential sum in double, each partial sum rounded to the dtype — bit
+    for bit against a Python loop, f32 and f64 (a torch release whose CPU
+    cumsum summed otherwise would show here)."""
+    _, pd = DTYPES[dtype]
+    rng = np.random.default_rng(17)
+    C, n = 5, 150
+    nd = np.float32 if dtype == 'f32' else np.float64
+    theta = (200 + 100 * rng.random((C, n))).astype(nd)
+    v = (rng.uniform(0.5, 2.0, n) * np.logspace(0, -5, n)).astype(nd)
+    SV, SW = pc.iso_prefix_sums(torch.from_numpy(theta), torch.from_numpy(v))
+    assert SV.dtype == pd and SV.shape == (n + 1, C) and SW.shape == (n + 1,)
+    prod = v * theta                                    # rounded in nd
+    want_sv = np.zeros((n + 1, C), nd)
+    want_sw = np.zeros(n + 1, nd)
+    for c in range(C):
+        acc = 0.0
+        for i in range(n):
+            acc += float(prod[c, i])
+            want_sv[i + 1, c] = nd(acc)
+    acc = 0.0
+    for i in range(n):
+        acc += float(v[i])
+        want_sw[i + 1] = nd(acc)
+    np.testing.assert_array_equal(SV.numpy(), want_sv)
+    np.testing.assert_array_equal(SW.numpy(), want_sw)
+    if dtype == 'f32':                 # the rule is not an f32 sum in order
+        f32_sum = np.cumsum(prod, axis=1, dtype=np.float32)
+        assert (f32_sum.T != want_sv[1:]).any()
+
+
+@pytest.mark.parametrize('dtype', ['f32', 'f64'])
+@pytest.mark.parametrize('b,n', [(7, 149), (129, 64), (17, 255), (9, 1),
+                                 (33, 2)])
+def test_iso_rows_plain_within_prefix_sum_bound_of_pallas(b, n, dtype):
+    """The plain version of the iso_fit kernel (prefix sums by the rule,
+    then the min-max step) against JAX's ``isotonic_increasing_lanes`` in
+    interpret mode: within the bound of
+    test_iso_rows_end_to_end_within_prefix_sum_bound, non-decreasing, and
+    what ``_iso_rows`` returns for CPU tensors.  A NaN in a row makes the
+    same entries NaN in both."""
+    from climatemodel_tpu.ops.pallas_isotonic import isotonic_increasing_lanes
+    jd, pd = DTYPES[dtype]
+    rng = np.random.default_rng(b * 7 + n)
+    theta = 200 + 100 * rng.random((b, n))
+    v = rng.uniform(0.5, 2.0, (n,))
+    want = np.asarray(isotonic_increasing_lanes(
+        jnp.asarray(theta, jd), jnp.asarray(v, jd), interpret=True))
+    tt, vt = torch.tensor(theta, dtype=pd), torch.tensor(v, dtype=pd)
+    got = pc.iso_rows_plain(tt, vt)
+    assert torch.equal(got, pc._iso_rows(tt, vt))
+    got = got.numpy()
+    eps = np.finfo(want.dtype).eps
+    bound = 4 * (np.log2(n) + 1) * eps * n * (v.max() / v.min()) * 300.0
+    assert np.abs(got.astype(np.float64) - want).max() <= bound
+    assert (np.diff(got, axis=1) >= 0).all()
+    if n > 1:
+        theta[b // 2, n // 2] = np.nan
+        want = np.asarray(isotonic_increasing_lanes(
+            jnp.asarray(theta, jd), jnp.asarray(v, jd), interpret=True))
+        got = pc.iso_rows_plain(torch.tensor(theta, dtype=pd), vt).numpy()
+        assert np.isnan(got).any()
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
 
 
 def test_segment_abs_max_exact():

@@ -15,6 +15,15 @@ from climatemodel_tpu.ops.pallas_two_stream import (grey_net_stats_lanes,
                                                     lw_flux_lanes)
 from climatemodel_tpu_torch.ops import two_stream as pts
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the test workers share the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # Bounds relative to the largest flux: XLA's CPU exp is not libm's (nor
 # PyTorch's vectorised one), and the walk multiplies each exp's rounding by
 # up to e^tau of the column.
@@ -93,7 +102,10 @@ def test_net_stats_matches_pallas_interpret(n, b, pct):
 def test_net_stats_nan_sentinel():
     """A NaN anywhere in a member's |net - prev| makes that member's top_1
     NaN and no other's; max|net| stays finite (as
-    test_two_stream.py::test_pallas_net_stats_kernel_nan_sentinel)."""
+    test_two_stream.py::test_pallas_net_stats_kernel_nan_sentinel).  The
+    Pallas kernel's sorted insertion then holds NaN in every slot, and so
+    does the port's twin: top_{L-1} and top_L are NaN for that member in
+    both."""
     rng = np.random.default_rng(34)
     n, b = 12, 16
     T, dtau, toa = _walk_inputs(rng, n, b, np.float32)
@@ -101,14 +113,72 @@ def test_net_stats_nan_sentinel():
     prev = zeros.copy()
     prev[4, 3] = np.nan
     args = (T, dtau, zeros, zeros, toa, prev)
-    _, top1_j, _, _, amax_j = grey_net_stats_lanes(
+    _, top1_j, hi_j, lo_j, amax_j = grey_net_stats_lanes(
         *(jnp.asarray(a) for a in args), 3, interpret=True)
-    _, top1_p, _, _, amax_p = pts.net_stats_sequential(
+    _, top1_p, hi_p, lo_p, amax_p = pts.net_stats_sequential(
         *(torch.from_numpy(a) for a in args), 3)
     np.testing.assert_array_equal(torch.isnan(top1_p).numpy(),
                                   np.isnan(np.asarray(top1_j)))
     assert bool(torch.isnan(top1_p[3])) and int(torch.isnan(top1_p).sum()) == 1
     assert not bool(torch.isnan(amax_p).any())
+    for p_, j_ in ((hi_p, hi_j), (lo_p, lo_j)):
+        np.testing.assert_array_equal(torch.isnan(p_).numpy(),
+                                      np.isnan(np.asarray(j_)))
+        assert bool(torch.isnan(p_[3])) and int(torch.isnan(p_).sum()) == 1
+
+
+def _insertion_top(x, L):
+    """The Pallas kernel's sorted insertion (pallas_two_stream.py:92-95)
+    over one member's values, with NaN-propagating max and min: (top_1,
+    top_{L-1}, top_L)."""
+    regs = [-np.inf] * L
+    for v in x:
+        for r in range(L):
+            hi = regs[r] if (np.isnan(regs[r]) or regs[r] > v) else v
+            v = regs[r] if (np.isnan(regs[r]) or regs[r] < v) else v
+            regs[r] = hi
+    return regs[0], regs[L - 2], regs[L - 1]
+
+
+@pytest.mark.parametrize('case', ['finite', 'ties', 'nan_prev', 'nan_temp'])
+@pytest.mark.parametrize('L', [2, 4, 9, 32])
+@pytest.mark.parametrize('dtype', [np.float32, np.float64])
+def test_net_stats_rows_route_bit_equal_to_sequential(dtype, L, case):
+    """The [b, r] route of K3 (``net_stats_rows_plain``, what the CUDA
+    kernel is held to on the card) equals ``net_stats_sequential`` on
+    [n, b] copies bit for bit, and its order statistics are the Pallas
+    kernel's sorted insertion, bit for bit: tied values keep their
+    multiplicity, and a NaN in prev_net or in T (which carries down the
+    walk into net) makes all three statistics NaN for that member only."""
+    rng = np.random.default_rng(100 * L + len(case))
+    n, b = 40, 6
+    T, dtau, usw, dsw, toa, prev = _stats_inputs(rng, n, b, dtype)
+    if case == 'ties':
+        usw[:] = 0
+        dsw[:] = 0
+        prev[2] = np.round(prev[2] / 100) * 100
+    rows = [np.ascontiguousarray(a.T) for a in (T, dtau, usw, dsw)]
+    rows.insert(4, toa)
+    rows.append(np.ascontiguousarray(prev.T))
+    if case == 'nan_prev':
+        rows[5][1, 7] = np.nan
+    if case == 'nan_temp':
+        rows[0][4, 20] = np.nan
+    out_r = pts.net_stats_rows_plain(*(torch.from_numpy(a) for a in rows), L)
+    cols = [np.ascontiguousarray(a.T) if a.ndim == 2 else a for a in rows]
+    out_c = pts.net_stats_sequential(*(torch.from_numpy(a) for a in cols), L)
+    assert out_r[0].shape == (b, n + 1)
+    np.testing.assert_array_equal(out_r[0].numpy(), out_c[0].numpy().T)
+    for a_r, a_c in zip(out_r[1:], out_c[1:]):
+        np.testing.assert_array_equal(a_r.numpy(), a_c.numpy())
+    d = np.abs(out_r[0].numpy() - rows[5])
+    want = np.array([_insertion_top(d[m], L) for m in range(b)]).T
+    got = np.stack([x.numpy() for x in out_r[1:4]])
+    np.testing.assert_array_equal(got, want.astype(dtype))
+    nan_member = {'nan_prev': 1, 'nan_temp': 4}.get(case)
+    assert np.isnan(got).any(axis=0).tolist() == [m == nan_member
+                                                  for m in range(b)]
+    assert bool(torch.isnan(out_r[4][4])) == (case == 'nan_temp')
 
 
 @pytest.mark.parametrize('ny', [1, 3])
@@ -166,8 +236,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match='CUDA tensor'):
         cts.lw_walk(T, T, torch.ones(3))
     with pytest.raises(ValueError, match='CUDA tensor'):
-        cts.net_stats_walk(T, T, torch.ones(5, 3), torch.ones(5, 3),
-                           torch.ones(3), torch.ones(5, 3), 2)
+        cts.net_stats_walk(T, T, torch.ones(4, 4), torch.ones(4, 4),
+                           torch.ones(4), torch.ones(4, 4), 2)
     assert cts.launch_counts == {'lw_walk': 0, 'net_stats_walk': 0}
 
 
