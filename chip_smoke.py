@@ -21,6 +21,7 @@ that last line.  Needs one CUDA device and ``nvcc``; imports no JAX.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -53,6 +54,14 @@ ISO_SHAPES = [(512, 149), (4096, 59), (7, 149), (129, 64), (1, 8), (17, 255),
 # ragged shapes, L = 2 and L = 32
 K3_CASES = [(59, 4096, 4), (149, 512, 9), (149, 16, 9), (20, 1025, 3),
             (5, 9, 4), (59, 130, 2), (63, 100, 32), (31, 7, 32)]
+# K1 (n cells, b members): the grey single world (nz=100, batch 1: where K1
+# is launched on the main path), the headline's width, an 'auto' grid of
+# ~600 levels at batch 1, ragged batches, and n above one chunk of the
+# block's 48 KB of shared memory (192 levels at 16 members in f32, 96 in
+# f64: n = 700 is 4 / 8 chunks, n = 200 is 2 / 3)
+K1_SHAPES = [(99, 1), (59, 4096), (59, 7), (24, 130), (60, 1024), (59, 1025),
+             (601, 1), (200, 40), (700, 33)]
+K1_MAIN = (99, 1)
 
 
 def thermosphere_kwargs(p_surface_earth):
@@ -149,14 +158,50 @@ def stats_rows(gen, n, b, dtype, dev):
             t(300 * r(b, n + 1) - 150))
 
 
+SOURCES = ('two_stream', 'convection', 'stencils')
+
+
+def build_all():
+    """One nvcc per source under ops/csrc/, and the PTX of convection.cu,
+    all at once; one 'build' line per source with its registers a thread
+    per kernel and any nonzero spills.  Returns the PTX."""
+    from climatemodel_tpu_torch.ops import _cuda_build as cuda_build
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(SOURCES) + 1) as pool:
+        futures = {name: pool.submit(cuda_build.build, name)
+                   for name in SOURCES}
+        ptx_future = pool.submit(cuda_build.ptx, 'convection')
+        built = {name: f.result() for name, f in futures.items()}
+        ptx_text = ptx_future.result()
+    for name, res in built.items():
+        log = res.log.splitlines()
+        # ptxas: "Compiling entry function '<mangled>'" then "Used N
+        # registers" for that entry
+        regs, entry = {}, None
+        for line in log:
+            if 'Compiling entry function' in line:
+                entry = line.split("'")[1] if "'" in line else line
+            elif 'Used' in line and entry is not None:
+                regs[entry] = int(line[line.find('Used'):].split()[1])
+        spills = [line.strip() for line in log if 'spill' in line and
+                  ' 0 bytes spill stores, 0 bytes spill loads' not in line]
+        emit('build', source=f'ops/csrc/{name}.cu',
+             seconds_all=time.perf_counter() - t0, nvcc_seconds=res.seconds,
+             library=os.path.relpath(res.path, ROOT),
+             max_registers=max(regs.values()) if regs else None,
+             registers=regs, nonzero_spills=spills[:4])
+    return ptx_text
+
+
 def phase_kernels(cts, ts, dev):
-    """Each kernel against its plain version on the card (phase 2): K1, and
-    K3 on the march's rows at K3_CASES and with a NaN in prev_net or in T."""
+    """Each kernel against its plain version on the card (phase 2): K1 at
+    K1_SHAPES, and K3 on the march's rows at K3_CASES and with a NaN in
+    prev_net or in T."""
     import torch
     at_main = {}
     for dtype in (torch.float32, torch.float64):
         gen = torch.Generator().manual_seed(2)
-        for n, b in [(59, 7), (24, 130), (60, 1024), (59, 1025), (59, 4096)]:
+        for n, b in K1_SHAPES:
             T, dtau, toa = walk_inputs(gen, n, b, dtype, dev)
             uk, dk = cts.lw_walk(T, dtau, toa)
             up, dp = ts.lw_flux_sequential(T, dtau, toa)
@@ -167,7 +212,7 @@ def phase_kernels(cts, ts, dev):
                  n=n, b=b, max_ulp=ulp, max_abs_err=err,
                  bit_equal=ulp == 0)
             check(ulp <= ULP_BOUND, f'lw_walk {n}x{b} {dtype}: {ulp} ulp')
-            if (n, b) == (59, 4096) and dtype == torch.float32:
+            if (n, b) == K1_MAIN and dtype == torch.float32:
                 at_main['lw_walk'] = err
         gen = torch.Generator().manual_seed(33)
         cases = [(n, b, L, None) for n, b, L in K3_CASES] + [
@@ -516,7 +561,7 @@ def phase_div_probe(pc, mods, dev, ptx_text):
     torch.cuda.synchronize()
     launches = read_counts(mods)['div_probe']
     outs_p = pc.div_probe_plain(a, b)
-    C = np.float32(9.81 / 1004.64)
+    C = np.float32(pc.DIV_PROBE_C)
     outs_np = (a_np / b_np, C * a_np / b_np, a_np / np.abs(b_np))
     res, err = {}, 0.0
     for name, k, p, x in zip(('a_div_b', 'c_mul_a_div_b', 'a_div_abs_b'),
@@ -719,6 +764,12 @@ def phase_conv_card_vs_cpu(ens, conv_state, dev, max_steps=400):
 SW = dict(nx=2050, ny=1026, nt=400)
 SW_SMOKE = dict(nx=258, ny=130, nt=400)
 SW_RAGGED = (37, 29)
+# Shapes that break the fused step's strips (R = 12 rows a warp, 30
+# columns a warp, 4 warps a block: kRows, kOut, kWarps in stencils.cu):
+# nx = 3 and ny = 3; nx - 2 not a multiple of R and ny - 2 not a multiple of 30
+# (SW_RAGGED, 51 x 95); one strip of one band (12 x 20); bands spread over
+# blocks with warps left idle (20 x 250)
+SW_EDGE = [(3, 3), (3, 40), (40, 3), (12, 20), (51, 95), (20, 250)]
 # The fused step against its plain version on the card, in ulp.  Both take
 # the same +, -, *, / in the same order, each one IEEE rounding (no FMA in
 # the kernel's build, div.rn for the divisions; PyTorch's elementwise CUDA
@@ -801,13 +852,14 @@ SW_MODES = [(None, None)] + [(bx, by) for bx in ('walls', 'periodic', 'given')
 def phase_sw_kernels(csl, pst, dev):
     """The fused Richtmyer step (K5 and K6) against its plain version on the
     card: f32 and f64, the interior mode and every boundary mode, flat
-    orography with row f and r and orography with full fields, a ragged grid
-    and 2050 x 1026; then ok False and a NaN in u (phase 2d)."""
+    orography with row f and r and orography with full fields, a ragged
+    grid, the edge shapes SW_EDGE and 2050 x 1026; then ok False and a NaN
+    in u (phase 2d)."""
     import torch
     at_main = {}
     for dtype in (torch.float32, torch.float64):
         gen = torch.Generator().manual_seed(40)
-        for nx, ny in (SW_RAGGED, (SW['nx'], SW['ny'])):
+        for nx, ny in [SW_RAGGED, *SW_EDGE, (SW['nx'], SW['ny'])]:
             for flat, rows in ((True, True), (False, False)):
                 x = sw_inputs(gen, nx, ny, dtype, dev, flat, rows)
                 for bx, by in SW_MODES:
@@ -857,6 +909,39 @@ def phase_sw_kernels(csl, pst, dev):
             check(frozen == (not ok), f'richtmyer_step ok={ok}: frozen '
                   f'{frozen}')
     return at_main
+
+
+def phase_sw_max2_reset(psw, Omega, R_earth, csl, pst, dev):
+    """max2 is reduced inside the step's one launch through a per-stream
+    accumulator and block ticket that every launch must leave at zero
+    (phase 2e): three back-to-back steps on the same inputs, an f64 step
+    between f32 ones, and a step between two ``sw_simulate`` runs all give
+    the plain version's max2."""
+    import torch
+    gen = torch.Generator().manual_seed(42)
+    x = sw_inputs(gen, SW['nx'], SW['ny'], torch.float32, dev, True, True)
+    x64 = sw_inputs(gen, *SW_RAGGED, torch.float64, dev, False, False)
+    want = pst.richtmyer_step_bc_plain(*sw_args(x), 'walls', 'walls')[3]
+    want64 = pst.richtmyer_step_bc_plain(*sw_args(x64), 'periodic',
+                                         'walls')[3]
+
+    def step():
+        return csl.richtmyer_step(*sw_args(x), bx='walls', by='walls')[3]
+    got = [step() for _ in range(3)]
+    got64 = csl.richtmyer_step(*sw_args(x64), bx='periodic', by='walls')[3]
+    got.append(step())
+    world = sw_world(psw, Omega, R_earth, *SW_RAGGED, device=dev)
+    kw = world._step_kwargs()
+    psw.sw_simulate(world.state, world.params, 20, **kw)
+    got.append(step())
+    psw.sw_simulate(world.state, world.params, 20, **kw)
+    got.append(step())
+    torch.cuda.synchronize()
+    same = [bool(g == want) for g in got]
+    emit('sw_max2_reset', max2=float(want), steps_equal_plain=same,
+         f64_equal_plain=bool(got64 == want64))
+    check(all(same) and bool(got64 == want64),
+          f'max2 of repeated steps differs from the plain version: {same}')
 
 
 def phase_sw_main(psw, Omega, R_earth, csl, dev):
@@ -1018,8 +1103,8 @@ def phase_sw_profile(psw, Omega, R_earth, dev, nt=100):
     """Where an El Nino step's time goes (phase 4e): ``nt`` steps of
     ``sw_simulate`` at 2050 x 1026 under ``torch.profiler`` (CUDA activity):
     device operations per step, the device's idle share, and the fused
-    kernel's device time against the rest (the wind's masked means, the
-    max2 recompute, the scalar controller, the ghost re-zero)."""
+    kernel's device time against the rest (the wind's masked means, the max2 recompute, the
+    scalar controller, the ghost re-zero)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     world = sw_world(psw, Omega, R_earth, SW['nx'], SW['ny'], device=dev)
@@ -1036,8 +1121,7 @@ def phase_sw_profile(psw, Omega, R_earth, dev, nt=100):
             for e in prof.key_averages()]
     rows = [r for r in rows if r[0] > 0]
     busy = sum(r[0] for r in rows) / 1e6
-    fused = sum(r[0] for r in rows if 'richtmyer_kernel' in r[2]
-                or 'max_reduce_kernel' in r[2]) / 1e6
+    fused = sum(r[0] for r in rows if 'richtmyer_kernel' in r[2]) / 1e6
     res = dict(steps=nt, wall_s=wall, ms_per_step=1e3 * wall / nt,
                device_busy_s=busy,
                device_idle_share=1 - busy / wall if busy > 0 else None,
@@ -1108,7 +1192,13 @@ def time_ms(fn, reps=50):
 def device_ms(fn, reps=20):
     """Device time per call of ``fn``: the kernels' time summed over a
     ``torch.profiler`` (CUPTI) window of ``reps`` calls, host gaps
-    excluded; None if the profiler saw no device time."""
+    excluded; None if the profiler saw no device time.
+
+    After a session of ~10^5 kernels in the same process, later sessions
+    can record fewer launches than ran (measured on the H100: 14 of 20),
+    so a sum over ``reps`` would read low.  Where the launches recorded are
+    not a multiple of ``reps``, a function of one kernel takes the mean of
+    the launches recorded, and any other returns None (not measured)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1117,9 +1207,16 @@ def device_ms(fn, reps=20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(getattr(e, 'device_time_total', None)
-             or getattr(e, 'cuda_time_total', 0) for e in prof.key_averages())
-    return us / reps / 1e3 if us > 0 else None
+    rows = [(getattr(e, 'device_time_total', None)
+             or getattr(e, 'cuda_time_total', 0), e.count)
+            for e in prof.key_averages()]
+    rows = [r for r in rows if r[0] > 0]
+    if not rows:
+        return None
+    us = sum(r[0] for r in rows)
+    if sum(r[1] for r in rows) % reps == 0:
+        return us / reps / 1e3
+    return us / rows[0][1] / 1e3 if len(rows) == 1 else None
 
 
 def timed_pair(kern, plain):
@@ -1139,25 +1236,26 @@ def timed_pair(kern, plain):
 
 def phase_times(cts, ts, ccv, pc, dev, probe):
     """Every kernel against its plain version, CUDA events (phase 5): K1 at
-    4096 x 59, K3 at 4096 x 59 and at the convective ensemble's 512 x 149,
-    K4 at 512 x 149 and at 4096 x 59, K7 on the probe's inputs beside
-    ``torch.div``.  Each entry
+    the single world's [99, 1] (where the main path launches it) and the
+    headline's [59, 4096], K3 at 4096 x 59 and at the convective ensemble's
+    512 x 149, K4 at 512 x 149 and at 4096 x 59, K7 on the probe's inputs
+    beside the PyTorch function of the same three quotients.  Each entry
     carries its bound: the larger of the bytes the function must move (each
     input read once, each output written once) over the card's memory rate
     and its f32 operations (a division or an exp counted as one) over the
     card's f32 rate."""
     import torch
     gen = torch.Generator().manual_seed(5)
-    n, b = 59, HEADLINE['members']
-    T, dtau, toa = walk_inputs(gen, n, b, torch.float32, dev)
-    res = {
-        'lw_walk': dict(timed_pair(
+    res = {}
+    for n, b in (K1_MAIN, (59, HEADLINE['members'])):
+        T, dtau, toa = walk_inputs(gen, n, b, torch.float32, dev)
+        key = 'lw_walk' if (n, b) == K1_MAIN else f'lw_walk_{n}x{b}'
+        res[key] = dict(timed_pair(
             lambda: cts.lw_walk(T, dtau, toa),
-            lambda: ts.lw_flux_sequential(T, dtau, toa)), n=n, b=b),
-    }
-    # per level: T^2, T^4, sigma*, 2 exp, 2 x (mul, sub, mul, add)
-    res['lw_walk']['bound'] = bound(
-        4 * (2 * n * b + b + 2 * (n + 1) * b), 13 * n * b)
+            lambda: ts.lw_flux_sequential(T, dtau, toa)), n=n, b=b,
+            # per level: T^2, T^4, sigma*, 2 exp, 2 x (mul, sub, mul, add)
+            bound=bound(4 * (2 * n * b + b + 2 * (n + 1) * b), 13 * n * b))
+    n, b = 59, HEADLINE['members']
     for n_, b_ in ((n, b), (CONV['nz'] - 1, CONV['members'])):
         args = stats_rows(gen, n_, b_, torch.float32, dev)
         L = ts.topk_depth(n_ + 1, 95)
@@ -1182,11 +1280,17 @@ def phase_times(cts, ts, ccv, pc, dev, probe):
             bound=bound(4 * (2 * b_ * n_ + n_),
                         2 * b_ * n_ + n_ + 5 * b_ * n_ * (n_ + 1) // 2))
     a, bb = probe['a'], probe['b']
+    C = torch.tensor(pc.DIV_PROBE_C, dtype=torch.float32, device=dev)
+
+    def library():
+        return (torch.div(a, bb), torch.div(C * a, bb),
+                torch.div(a, bb.abs()))
     res['div_probe'] = dict(
         timed_pair(lambda: ccv.div_probe(a, bb),
                    lambda: pc.div_probe_plain(a, bb)),
-        library_ms=time_ms(lambda: torch.div(a, bb)),
-        library_device_ms=device_ms(lambda: torch.div(a, bb)),
+        library_fn='torch.div(a, b), torch.div(C * a, b), '
+                   'torch.div(a, b.abs())',
+        library_ms=time_ms(library), library_device_ms=device_ms(library),
         shape=list(a.shape),
         # three divisions, one product, one |b| per element
         bound=bound(4 * 5 * a.numel(), 5 * a.numel()))
@@ -1214,7 +1318,6 @@ def main():
     from climatemodel_tpu_torch.models import ensemble as ens
     from climatemodel_tpu_torch.models import shallow_water as psw
     from climatemodel_tpu_torch.models.grey import GreyGas
-    from climatemodel_tpu_torch.ops import _cuda_build
     from climatemodel_tpu_torch.ops import convection as pc
     from climatemodel_tpu_torch.ops import cuda_convection as ccv
     from climatemodel_tpu_torch.ops import cuda_stencils as csl
@@ -1231,34 +1334,16 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # one nvcc per source, and the PTX of convection.cu, all at once
-    t0 = time.perf_counter()
-    sources = ('two_stream', 'convection', 'stencils')
-    with ThreadPoolExecutor(max_workers=len(sources) + 1) as pool:
-        futures = {name: pool.submit(_cuda_build.build, name)
-                   for name in sources}
-        ptx_future = pool.submit(_cuda_build.ptx, 'convection')
-        built = {name: f.result() for name, f in futures.items()}
-        ptx_text = ptx_future.result()
+    ptx_text = build_all()
     cts.library()
     ccv.library()
     csl.library()
-    for name, res in built.items():
-        log = res.log.splitlines()
-        regs = [int(w.split()[1]) for line in log
-                for w in [line[line.find('Used'):]] if 'Used' in line]
-        spills = [line.strip() for line in log if 'spill' in line and
-                  ' 0 bytes spill stores, 0 bytes spill loads' not in line]
-        emit('build', source=f'ops/csrc/{name}.cu',
-             seconds_all=time.perf_counter() - t0, nvcc_seconds=res.seconds,
-             library=str(res.path.relative_to(ROOT)),
-             max_registers=max(regs) if regs else None,
-             nonzero_spills=spills[:4])
     emit('limits', max_topk=cts.max_topk(), iso_fit_max_levels=ccv.max_levels())
 
     at_main = phase_kernels(cts, ts, dev)
     at_main.update(phase_conv_kernels(ccv, pc, dev))
     at_main.update(phase_sw_kernels(csl, pst, dev))
+    phase_sw_max2_reset(psw, Omega, R_earth, csl, pst, dev)
     probe = phase_div_probe(pc, mods, dev, ptx_text)
     main_res = phase_main(ens, GreyGas, p_surface_earth, mods, dev)
     launches = main_res[5]
@@ -1269,10 +1354,11 @@ def main():
     phase_card_vs_cpu(ens, GreyGas, p_surface_earth, main_res, dev)
     phase_conv_card_vs_cpu(ens, conv_state, dev)
     phase_sw_card_vs_cpu(psw, Omega, R_earth, dev)
-    phase_conv_profile(ens, conv_state)
-    phase_sw_profile(psw, Omega, R_earth, dev)
+    # the kernel times before the profiled marches (see device_ms)
     times = phase_times(cts, ts, ccv, pc, dev, probe)
     times.update(phase_sw_times(csl, pst, dev))
+    phase_sw_profile(psw, Omega, R_earth, dev)
+    phase_conv_profile(ens, conv_state)
 
     def entry(name, source, replaces, n_launch, err, t, library_ms=None):
         return {'name': name, 'route': 'cuda',

@@ -55,10 +55,12 @@ class BuildResult(NamedTuple):
 
 
 def build(name: str) -> BuildResult:
-    """Compile ``csrc/<name>.cu`` unless the library for this exact source
-    and these flags is already in ``build/kernels/``."""
+    """Compile ``csrc/<name>.cu`` unless the library for this exact source,
+    the headers beside it and these flags is already in ``build/kernels/``."""
     src = CSRC / f'{name}.cu'
-    digest = hashlib.sha256(src.read_bytes()
+    text = src.read_bytes() + b''.join(
+        h.read_bytes() for h in sorted(CSRC.glob('*.cuh')))
+    digest = hashlib.sha256(text
                             + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f'lib{name}_{digest}.so'
     if out.exists():

@@ -6,8 +6,9 @@
 //   modes bx x by (all ghosts) <- _kernel_frame / _kernel_frame_flat via
 //                                 _kernel_frame_body, _store_ghost_row and
 //                                 _write_ghost_lanes (richtmyer_step_frame, K6)
-// One kernel, templated on the float type and on flat orography; the
-// boundary mode is a runtime argument (it only decides the edge writes).
+// One kernel, templated on the float type, on flat orography and on f and r
+// given as one row; the boundary mode is a runtime argument (it only decides
+// the edge writes).
 //
 // What it computes per interior cell, in the op order of _fused_update
 // (pallas_stencils.py:57-136) and of the plain version
@@ -18,23 +19,60 @@
 // orography), Rayleigh damping against the pre-step u and v, the ok freeze,
 // and u^2 + v^2 for the next step's CFL statistic max2.
 //
-// What bounds it on this card: bytes.  A step reads h, u, v and writes the
-// new h, u, v (f and r are one broadcast row on the bench world; the flat
-// variant reads no orography gradients): 6 field passes, ~50.5 MB at
-// 2050 x 1026 f32, ~15 us at 3.35 TB/s.  The arithmetic is ~70 operations a
-// cell (~2 us at 67 TFLOP/s).  The 25 MB of inputs and 25 MB of outputs fit
-// in the 50 MB L2, so a time below the HBM bound is possible when a step
-// follows a step.
+// What bounds it on this card: bytes, then instruction issue.  A step
+// reads h, u, v and writes the new h, u, v (f and r are one broadcast row on
+// the bench world; the flat variant reads no orography gradients): 6 field
+// passes, ~50.5 MB at 2050 x 1026 f32, ~15 us at 3.35 TB/s.  The arithmetic
+// is ~110 f32 operations a cell (one rounding each, no contraction: -fmad=
+// false for bit-equality with the plain version), and with the shuffles,
+// the division checks, the copies, the stores and the loop a warp issues
+// ~230 instructions for a row of its 30 cells (SASS): ~18 us of issue on
+// 132 SMs at one instruction a clock a scheduler.  So the loads must stay in
+// flight while the cells are computed, and nothing may be computed twice.
 //
-// The design: a block of 32 x 8 threads owns a 8-row x 32-column tile of
-// outputs; threadIdx.x runs along y, the contiguous axis, so loads and
-// stores coalesce.  It stages the (8+2) x (32+2) window of h, u, v in shared
-// memory, forms the half-step fluxes of the 9 x 32 x-faces and 8 x 33
-// y-faces once each into shared memory, and updates its cells from them.
-// Edges are masked, so any nx, ny >= 3 works.  max2 is reduced per block
-// with NaN-propagating selects (jnp.max propagates NaN; fmaxf drops it, and a
-// NaN max2 is what freezes the next step), the block partials are reduced by
-// a one-block second launch; no float atomics.
+// The design: row strips with a rolling window.
+//  - A warp owns a band of 32 columns along y (the contiguous axis), lane l
+//    on column 30 b + l of band b, and walks a strip of R rows along x.  The
+//    edge lanes are the band's halo: lanes 1..30 output, so the loaded bytes
+//    are 32/30 of the fields along y and (R+2)/R along x.
+//  - Rows arrive through a per-warp ring of kRing rows in shared memory,
+//    filled by cp.async: each lane copies its own column's h, u, v and reads
+//    them back itself (no barrier), and the rows i+2 .. i+kRing are in
+//    flight while row i is computed, without holding registers.  (Loads into
+//    registers, one row ahead, held a third of those bytes in flight and ran
+//    ~10% slower.)
+//  - Each lane keeps the conservative form and fluxes of rows i and i+1 of
+//    its column in registers (cell(), evaluated once per cell).  The x-face
+//    flux at i+1/2 is computed once and becomes row i+1's flux at i-1/2.
+//  - The y-neighbour's cell comes from __shfl_down_sync, the y-face flux at
+//    j-1/2 from the lane below by __shfl_up_sync: every face flux once.
+//  - f and r given as one row (row stride 0) are read once per strip (a
+//    template case); full f, r and the orography gradients once per row.
+//  - The three f32 divisions (1 / h at the x-faces, the y-faces and the new
+//    cell) take div_rn_in_range (div_rn.cuh) wherever a warp vote puts every
+//    lane's denominator in [2^-20, 2^40] (depths of 1e2-1e4 m always are),
+//    `/` otherwise; f64 divides with `/`.
+//  - 4-byte copies, one column a lane: rows of an odd ny are only 4-byte
+//    aligned, and a warp's 32 lanes already move 128 contiguous bytes.  (Two
+//    columns a lane, with 8-byte copies where aligned, needs 116-128
+//    registers: half the warps an SM, and slower.)
+//  - 32-bit offsets (nx ny < 2^31) and per-lane base pointers keep the
+//    address arithmetic off the 64-bit path.
+//  - max2 in the same launch: each block reduces its cells' u^2 + v^2 with
+//    NaN-propagating selects (jnp.max propagates NaN; fmaxf drops it, and a
+//    NaN max2 is what freezes the next step), then takes an atomicMax on the
+//    bit pattern of that non-negative value (NaN as the canonical positive
+//    NaN, above +inf) into an accumulator that the wrapper keeps per device
+//    and stream.  A ticket (atomicInc, which wraps to 0 at the last block)
+//    finds the last block; it swaps the accumulator with 0 and writes max2.
+//    The accumulator and the ticket are 0 again when the launch ends, so the
+//    step is one launch, with no memset, and stays valid in a CUDA graph.
+//    Exact: a max of bit patterns in any order.
+// R = kRows = 12 rows and kWarps = 4 warps a block, chosen by measurement
+// at 2050 x 1026 (chip_compare.py on copies of the package with the two
+// constants edited; PERF.md): the fastest there, though it loads 32/30 x
+// 14/12 = 1.24 x the fields' bytes (taller strips load less and ran
+// slower).  64 registers (the launch bound) keep 32 warps an SM in f32.
 //
 // Scalars without a host sync: dt, g, dx, dy are 0-d device tensors read by
 // pointer, ok a 0-d bool; sx = dt / dx and sy = dt / dy are one division
@@ -42,9 +80,9 @@
 //
 // Ghost cells (K6 modes): every ghost value of apply_boundary_conditions
 // (x block then y block, corners included) is one fixed interior cell of
-// the new step, or zero.  The thread that computes an interior cell writes
+// the new step, or zero.  The lane that computes an interior cell writes
 // every ghost that copies it, so there is no dependency between blocks
-// (periodic-x ghost rows copy the opposite edge's new rows from the threads
+// (periodic-x ghost rows copy the opposite edge's new rows from the lanes
 // that computed them).  With f = (h, u, v), zx = u at x walls, zy = v at y
 // walls, and s0 / s1 the source rows of ghost rows 0 / nx-1 (walls: 1 /
 // nx-2; periodic: nx-2 / 1):
@@ -56,26 +94,32 @@
 //   corners, by periodic:        (0,0) <- (1,ny-2); (0,ny-1) <- (1,1);
 //                                (nx-1,0) <- (nx-2,ny-2); (nx-1,ny-1) <- (nx-2,1)
 // bx = given writes no x ghost row and no corner (the caller's halo fills
-// them), as the Pallas kernel.
+// them), as the Pallas kernel.  Only the edge bands and the rows 1 and nx-2
+// go through those rules; every other cell is one store a field.
 //
 // Rounding: the build passes -fmad=false (no multiply-add contraction) and
-// no fast math, so every product, sum and division (div.rn) is one IEEE
-// rounding in the plain version's order: the kernel is expected to be
+// no fast math, so every product, sum and division (div.rn, or its in-range
+// form) is one IEEE rounding in the plain version's order: the kernel is
 // bit-equal to it.
 //
 // C interface (ctypes): pointers and the stream as void*, strides as
-// long long, sizes and modes as int.  Entry points return
-// cudaGetLastError() after their launches.
+// long long, sizes and modes as int.  The entry points return
+// cudaGetLastError() after the launch.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
+
+#include "div_rn.cuh"
 
 namespace {
 
-constexpr int kTY = 32;                  // outputs along y per block (x threads)
-constexpr int kTX = 8;                   // outputs along x per block (y threads)
-constexpr int kThreads = kTX * kTY;
-constexpr int kReduceThreads = 1024;
+constexpr int kWarp = 32;
+constexpr int kRing = 4;                 // rows a warp's cp.async ring holds (>= 2)
+constexpr int kOut = kWarp - 2;          // interior columns a warp outputs
+constexpr int kRows = 12;                // R: the rows of a warp's strip
+constexpr int kWarps = 4;                // warps a block
+constexpr unsigned kFull = 0xffffffffu;
 
 enum BxMode { kBxNone = 0, kBxWalls = 1, kBxPeriodic = 2, kBxGiven = 3 };
 enum ByMode { kByNone = 0, kByWalls = 1, kByPeriodic = 2 };
@@ -83,12 +127,66 @@ enum ByMode { kByNone = 0, kByWalls = 1, kByPeriodic = 2 };
 template <typename T>
 __device__ __forceinline__ T nan_max(T a, T b) { return (isnan(a) || a > b) ? a : b; }
 
+// One element from device memory into shared memory, asynchronously.
+template <typename T>
+__device__ __forceinline__ void cp_async(T* smem, const T* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;"
+               :: "r"(s), "l"(gmem), "n"(sizeof(T)) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
+}
+
 template <typename T>
 __device__ __forceinline__ T warp_max(T x) {
 #pragma unroll
   for (int off = 16; off > 0; off /= 2)
-    x = nan_max(x, __shfl_xor_sync(0xffffffffu, x, off));
+    x = nan_max(x, __shfl_xor_sync(kFull, x, off));
   return x;
+}
+
+// The max2 accumulator: the bit pattern of a value in [+0, +inf] or NaN,
+// ordered as the values, with every NaN mapped to the positive quiet NaN.
+template <typename T> struct Bits;
+template <> struct Bits<float> {
+  using type = unsigned int;
+  static __device__ __forceinline__ type of(float x) {
+    return isnan(x) ? 0x7fc00000u : __float_as_uint(x);
+  }
+  static __device__ __forceinline__ float value(type b) { return __uint_as_float(b); }
+};
+template <> struct Bits<double> {
+  using type = unsigned long long;
+  static __device__ __forceinline__ type of(double x) {
+    return isnan(x) ? 0x7ff8000000000000ull
+                    : static_cast<type>(__double_as_longlong(x));
+  }
+  static __device__ __forceinline__ double value(type b) {
+    return __longlong_as_double(static_cast<long long>(b));
+  }
+};
+
+// 1 / x, with the branch-free division where the warp voted `fast`.
+template <typename T>
+__device__ __forceinline__ T recip(T x, bool fast) {
+  if constexpr (sizeof(T) == 4) {
+    if (fast) return div_rn_in_range(1.0f, x);
+  }
+  return static_cast<T>(1) / x;
+}
+
+// Whether every lane's denominator allows the branch-free division (f32).
+template <typename T>
+__device__ __forceinline__ bool vote_fast(T x) {
+  if constexpr (sizeof(T) == 4)
+    return __all_sync(kFull, in_fast_range(x));
+  else
+    return false;
 }
 
 // Per-cell conservative form and fluxes: F = (uh, uh u + gh2, uh v),
@@ -109,6 +207,39 @@ __device__ __forceinline__ Cell<T> cell(T h, T u, T v, T half_g) {
   c.F2 = c.uh * v;
   c.G2 = c.vh * v + gh2;
   return c;
+}
+
+// Half-step fluxes at one face.
+template <typename T>
+struct Face {
+  T f0, f1, f2;
+};
+
+// The x-face between rows lo (i) and hi (i+1) of one column.
+template <typename T>
+__device__ __forceinline__ Face<T> x_face(const Cell<T>& lo, const Cell<T>& hi,
+                                          T half, T half_sx, T half_g) {
+  const T hx0 = half * (hi.h + lo.h) - half_sx * (hi.uh - lo.uh);
+  const T hx1 = half * (hi.uh + lo.uh) - half_sx * (hi.F1 - lo.F1);
+  const T hx2 = half * (hi.vh + lo.vh) - half_sx * (hi.F2 - lo.F2);
+  const T inv = recip(hx0, vote_fast(hx0));
+  return {hx1, hx1 * hx1 * inv + half_g * hx0 * hx0, hx1 * hx2 * inv};
+}
+
+// The y-face between this lane's column (lo) and the next lane's (hi).
+template <typename T>
+__device__ __forceinline__ Face<T> y_face(const Cell<T>& lo, T half, T half_sy,
+                                          T half_g) {
+  const T h = __shfl_down_sync(kFull, lo.h, 1);
+  const T uh = __shfl_down_sync(kFull, lo.uh, 1);
+  const T vh = __shfl_down_sync(kFull, lo.vh, 1);
+  const T F2 = __shfl_down_sync(kFull, lo.F2, 1);
+  const T G2 = __shfl_down_sync(kFull, lo.G2, 1);
+  const T hy0 = half * (h + lo.h) - half_sy * (vh - lo.vh);
+  const T hy1 = half * (uh + lo.uh) - half_sy * (F2 - lo.F2);
+  const T hy2 = half * (vh + lo.vh) - half_sy * (G2 - lo.G2);
+  const T inv = recip(hy0, vote_fast(hy0));
+  return {hy2, hy1 * hy2 * inv, hy2 * hy2 * inv + half_g * hy0 * hy0};
 }
 
 template <typename T>
@@ -182,154 +313,181 @@ struct StepArgs {
   const T* dy;
   const unsigned char* ok;
   Fields<T> out;              // [nx-2, ny-2] (mode none) or [nx, ny]
-  T* partial;                 // one max2 partial per block
+  T* max2;                    // 0-d output
+  typename Bits<T>::type* acc;  // per-stream max2 accumulator, 0 between launches
+  unsigned int* ticket;       // per-stream block counter, 0 between launches
   int nx, ny, bx, by;
 };
 
-template <typename T, bool kFlat>
-__global__ void __launch_bounds__(kThreads)
+// 64 registers in f32 (32 warps an SM), 128 in f64
+template <typename T, bool kFlat, bool kRowFR>
+__global__ void __launch_bounds__(kWarp * kWarps,
+                                  (sizeof(T) == 4 ? 32 : 16) / kWarps)
 richtmyer_kernel(const StepArgs<T> a) {
-  __shared__ T sh[kTX + 2][kTY + 2];
-  __shared__ T su[kTX + 2][kTY + 2];
-  __shared__ T sv[kTX + 2][kTY + 2];
-  __shared__ T fx[3][kTX + 1][kTY];       // half-step fluxes on x-faces
-  __shared__ T fy[3][kTX][kTY + 1];       // half-step fluxes on y-faces
-  __shared__ T red[kThreads / 32];
-
+  __shared__ T red[kWarps];
+  __shared__ T ring[kWarps][kRing][3][kWarp];
   const int nx = a.nx, ny = a.ny;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * kTY + tx;
-  const int i0 = blockIdx.y * kTX;        // full row of window row 0
-  const int j0 = blockIdx.x * kTY;        // full column of window column 0
+  const int lane = threadIdx.x % kWarp;
+  const int warp = threadIdx.x / kWarp;
+  const int band = blockIdx.x * kWarps + warp;
+  const int c = band * kOut + lane;                 // this lane's column
+  const int i0 = 1 + blockIdx.y * kRows;            // the strip's first row
+  const int i1 = min(i0 + kRows, nx - 1);           // one past its last
+  T m2 = static_cast<T>(0);                         // max2 of this lane's cells
 
-  for (int k = tid; k < (kTX + 2) * (kTY + 2); k += kThreads) {
-    const int wr = k / (kTY + 2), wc = k % (kTY + 2);
-    const int gi = i0 + wr, gj = j0 + wc;
-    T hv = static_cast<T>(1), uv = static_cast<T>(0), vv = static_cast<T>(0);
-    if (gi < nx && gj < ny) {
-      const size_t idx = (size_t)gi * ny + gj;
-      hv = a.h[idx];
-      uv = a.u[idx];
-      vv = a.v[idx];
+  if (band * kOut < ny - 2) {                       // the band has outputs
+    const T dt = *a.dt;
+    const T g = *a.g;
+    const bool ok = *a.ok != 0;
+    const T sx = dt / *a.dx;
+    const T sy = dt / *a.dy;
+    const T half = static_cast<T>(0.5);
+    const T half_g = half * g;
+    const T half_sx = half * sx;
+    const T half_sy = half * sy;
+    const bool outputs = lane >= 1 && lane <= kOut && c <= ny - 2;
+    // lanes past the grid read its last column: only faces nobody uses
+    const int col = min(c, ny - 1);
+    const int jj = min(max(c - 1, 0), ny - 3);      // interior column
+    const T* hp = a.h + col;
+    const T* up = a.u + col;
+    const T* vp = a.v + col;
+    // f and r: one row read once, or a value a row from row i0 - 1 of the
+    // interior on, as the orography gradients
+    const T* fp = a.f + (i0 - 1) * a.f_stride + jj;
+    const T* rp = a.r + (i0 - 1) * a.r_stride + jj;
+    T fc = *fp, rc = *rp;
+    const T* gxp = kFlat ? nullptr : a.dhbx + (i0 - 1) * a.dhbx_stride + jj;
+    const T* gyp = kFlat ? nullptr : a.dhby + (i0 - 1) * a.dhby_stride + jj;
+    // the outputs of this lane's column: interior [nx-2, ny-2] (mode none)
+    // or full [nx, ny] from row i0; ghosts through write_with_ghosts at
+    // the edge bands and rows 1 and nx-2
+    const bool interior = a.bx == kBxNone;
+    const int ostride = a.out.ny;
+    int o_off = (interior ? i0 - 1 : i0) * ostride + (interior ? jj : col);
+    T* ohp = a.out.h;
+    T* oup = a.out.u;
+    T* ovp = a.out.v;
+    const bool edge_band = !interior &&
+                           (band == 0 || band * kOut + kOut >= ny - 2);
+
+    // a warp's ring: row r of the strip (r0 = i0 - 1) in slot (r - r0) %
+    // kRing, each lane's element copied by that lane (so read by it alone)
+    T (*rg)[3][kWarp] = ring[warp];
+    auto issue = [&](int r, int slot) {
+      if (r <= i1) {
+        const int k = r * ny;
+        cp_async(&rg[slot][0][lane], hp + k);
+        cp_async(&rg[slot][1][lane], up + k);
+        cp_async(&rg[slot][2][lane], vp + k);
+      }
+      cp_async_commit();
+    };
+#pragma unroll
+    for (int q = 0; q < kRing; ++q) issue(i0 - 1 + q, q);
+
+    // the window: row i's cell (and raw u, v) and the x-face flux at i-1/2
+    cp_async_wait<kRing - 2>();
+    Cell<T> cur = cell(rg[1][0][lane], rg[1][1][lane], rg[1][2][lane], half_g);
+    T u_c = rg[1][1][lane];
+    T v_c = rg[1][2][lane];
+    Face<T> fxm = x_face(
+        cell(rg[0][0][lane], rg[0][1][lane], rg[0][2][lane], half_g), cur,
+        half, half_sx, half_g);
+    issue(i0 - 1 + kRing, 0);
+    int s_read = 2 % kRing, s_free = 1;
+
+    for (int i = i0; i < i1; ++i) {
+      // row i+1 from the ring; rows up to i+kRing in flight
+      cp_async_wait<kRing - 2>();
+      const T h_n = rg[s_read][0][lane];
+      const T u_n = rg[s_read][1][lane];
+      const T v_n = rg[s_read][2][lane];
+      issue(i + kRing, s_free);
+      s_read = s_read + 1 == kRing ? 0 : s_read + 1;
+      s_free = s_free + 1 == kRing ? 0 : s_free + 1;
+      if (!kRowFR) {
+        fc = *fp;
+        rc = *rp;
+        fp += a.f_stride;
+        rp += a.r_stride;
+      }
+      T dgx = static_cast<T>(0), dgy = static_cast<T>(0);
+      if (!kFlat) {
+        dgx = *gxp;
+        dgy = *gyp;
+        gxp += a.dhbx_stride;
+        gyp += a.dhby_stride;
+      }
+
+      const Cell<T> nxt = cell(h_n, u_n, v_n, half_g);
+      const Face<T> fxp = x_face(cur, nxt, half, half_sx, half_g);
+      const Face<T> fyp = y_face(cur, half, half_sy, half_g);
+      const T fym0 = __shfl_up_sync(kFull, fyp.f0, 1);
+      const T fym1 = __shfl_up_sync(kFull, fyp.f1, 1);
+      const T fym2 = __shfl_up_sync(kFull, fyp.f2, 1);
+
+      // stage 2: update, source, damping, freeze
+      const T hw = cur.h;
+      T h_new = hw - sx * (fxp.f0 - fxm.f0) - sy * (fyp.f0 - fym0);
+      T uh_new = cur.uh - sx * (fxp.f1 - fxm.f1) - sy * (fyp.f1 - fym1);
+      T vh_new = cur.vh - sx * (fxp.f2 - fxm.f2) - sy * (fyp.f2 - fym2);
+      T Q1, Q2;
+      if (kFlat) {
+        Q1 = fc * cur.vh;
+        Q2 = -fc * cur.uh;
+      } else {
+        const T gh_mid = g * (half * (h_new + hw));
+        Q1 = fc * cur.vh - gh_mid * dgx;
+        Q2 = -fc * cur.uh - gh_mid * dgy;
+      }
+      uh_new = uh_new + Q1 * dt;
+      vh_new = vh_new + Q2 * dt;
+      const T inv_new = recip(h_new, vote_fast(h_new));
+      const T r_dt = rc * dt;
+      T u_new = uh_new * inv_new - r_dt * u_c;
+      T v_new = vh_new * inv_new - r_dt * v_c;
+      if (!ok) {
+        h_new = hw;
+        u_new = u_c;
+        v_new = v_c;
+      }
+      if (outputs) {
+        m2 = nan_max(m2, u_new * u_new + v_new * v_new);
+        if (edge_band || (!interior && (i == 1 || i == nx - 2))) {
+          write_with_ghosts(a.out, nx, ny, a.bx, a.by, i, c, h_new, u_new,
+                            v_new);
+        } else {
+          ohp[o_off] = h_new;
+          oup[o_off] = u_new;
+          ovp[o_off] = v_new;
+        }
+      }
+      o_off += ostride;
+
+      cur = nxt;
+      u_c = u_n;
+      v_c = v_n;
+      fxm = fxp;
     }
-    sh[wr][wc] = hv;
-    su[wr][wc] = uv;
-    sv[wr][wc] = vv;
+    cp_async_wait<0>();
   }
-  const T dt = *a.dt;
-  const T g = *a.g;
-  const bool ok = *a.ok != 0;
-  const T sx = dt / *a.dx;
-  const T sy = dt / *a.dy;
-  const T half = static_cast<T>(0.5);
-  const T one = static_cast<T>(1);
-  const T half_g = half * g;
-  const T half_sx = half * sx;
-  const T half_sy = half * sy;
-  __syncthreads();
 
-  // stage 1 + half-step fluxes, x-faces between window rows r and r+1
-  for (int k = tid; k < (kTX + 1) * kTY; k += kThreads) {
-    const int r = k / kTY, c = k % kTY + 1;
-    const Cell<T> lo = cell(sh[r][c], su[r][c], sv[r][c], half_g);
-    const Cell<T> hi = cell(sh[r + 1][c], su[r + 1][c], sv[r + 1][c], half_g);
-    const T hx0 = half * (hi.h + lo.h) - half_sx * (hi.uh - lo.uh);
-    const T hx1 = half * (hi.uh + lo.uh) - half_sx * (hi.F1 - lo.F1);
-    const T hx2 = half * (hi.vh + lo.vh) - half_sx * (hi.F2 - lo.F2);
-    const T inv = one / hx0;
-    fx[0][r][c - 1] = hx1;
-    fx[1][r][c - 1] = hx1 * hx1 * inv + half_g * hx0 * hx0;
-    fx[2][r][c - 1] = hx1 * hx2 * inv;
-  }
-  // y-faces between window columns c and c+1
-  for (int k = tid; k < kTX * (kTY + 1); k += kThreads) {
-    const int r = k / (kTY + 1) + 1, c = k % (kTY + 1);
-    const Cell<T> lo = cell(sh[r][c], su[r][c], sv[r][c], half_g);
-    const Cell<T> hi = cell(sh[r][c + 1], su[r][c + 1], sv[r][c + 1], half_g);
-    const T hy0 = half * (hi.h + lo.h) - half_sy * (hi.vh - lo.vh);
-    const T hy1 = half * (hi.uh + lo.uh) - half_sy * (hi.F2 - lo.F2);
-    const T hy2 = half * (hi.vh + lo.vh) - half_sy * (hi.G2 - lo.G2);
-    const T inv = one / hy0;
-    fy[0][r - 1][c] = hy2;
-    fy[1][r - 1][c] = hy1 * hy2 * inv;
-    fy[2][r - 1][c] = hy2 * hy2 * inv + half_g * hy0 * hy0;
-  }
+  // max2: the block's max, then the per-stream accumulator; the last block
+  // to finish takes the result and leaves the accumulator and ticket at 0
+  m2 = warp_max(m2);
+  if (lane == 0) red[warp] = m2;
   __syncthreads();
-
-  // stage 2: update, source, damping, freeze
-  const int gi = i0 + 1 + ty, gj = j0 + 1 + tx;
-  T s2 = static_cast<T>(-INFINITY);
-  if (gi <= nx - 2 && gj <= ny - 2) {
-    const T hw = sh[ty + 1][tx + 1];
-    const T uw = su[ty + 1][tx + 1];
-    const T vw = sv[ty + 1][tx + 1];
-    const T uhw = hw * uw;
-    const T vhw = hw * vw;
-    T h_new = hw - sx * (fx[0][ty + 1][tx] - fx[0][ty][tx])
-              - sy * (fy[0][ty][tx + 1] - fy[0][ty][tx]);
-    T uh_new = uhw - sx * (fx[1][ty + 1][tx] - fx[1][ty][tx])
-               - sy * (fy[1][ty][tx + 1] - fy[1][ty][tx]);
-    T vh_new = vhw - sx * (fx[2][ty + 1][tx] - fx[2][ty][tx])
-               - sy * (fy[2][ty][tx + 1] - fy[2][ty][tx]);
-    const int ii = gi - 1, jj = gj - 1;   // interior indices
-    const T fc = a.f[ii * a.f_stride + jj];
-    T Q1, Q2;
-    if (kFlat) {
-      Q1 = fc * vhw;
-      Q2 = -fc * uhw;
-    } else {
-      const T gh_mid = g * (half * (h_new + hw));
-      Q1 = fc * vhw - gh_mid * a.dhbx[ii * a.dhbx_stride + jj];
-      Q2 = -fc * uhw - gh_mid * a.dhby[ii * a.dhby_stride + jj];
-    }
-    uh_new = uh_new + Q1 * dt;
-    vh_new = vh_new + Q2 * dt;
-    const T inv_new = one / h_new;
-    const T r_dt = a.r[ii * a.r_stride + jj] * dt;
-    T u_new = uh_new * inv_new - r_dt * uw;
-    T v_new = vh_new * inv_new - r_dt * vw;
-    if (!ok) {
-      h_new = hw;
-      u_new = uw;
-      v_new = vw;
-    }
-    s2 = u_new * u_new + v_new * v_new;
-    if (a.bx == kBxNone) {
-      Fields<T> o = a.out;
-      o.put(ii, jj, h_new, u_new, v_new);
-    } else {
-      write_with_ghosts(a.out, nx, ny, a.bx, a.by, gi, gj, h_new, u_new, v_new);
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < kWarps; ++w) m2 = nan_max(m2, red[w]);
+    atomicMax(a.acc, Bits<T>::of(m2));
+    __threadfence();
+    const unsigned int last = gridDim.x * gridDim.y - 1;
+    if (atomicInc(a.ticket, last) == last) {
+      __threadfence();
+      *a.max2 = Bits<T>::value(atomicExch(a.acc, 0));
     }
   }
-
-  s2 = warp_max(s2);
-  if (tid % 32 == 0) red[tid / 32] = s2;
-  __syncthreads();
-  if (tid < 32) {
-    T m = tid < kThreads / 32 ? red[tid] : static_cast<T>(-INFINITY);
-    m = warp_max(m);
-    if (tid == 0) a.partial[blockIdx.y * gridDim.x + blockIdx.x] = m;
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kReduceThreads)
-max_reduce_kernel(const T* __restrict__ partial, int n, T* __restrict__ out) {
-  __shared__ T red[kReduceThreads / 32];
-  T m = static_cast<T>(-INFINITY);
-  for (int k = threadIdx.x; k < n; k += kReduceThreads) m = nan_max(m, partial[k]);
-  m = warp_max(m);
-  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = m;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    m = red[threadIdx.x];
-    m = warp_max(m);
-    if (threadIdx.x == 0) *out = m;
-  }
-}
-
-inline dim3 grid_for(int nx, int ny) {
-  return dim3((ny - 2 + kTY - 1) / kTY, (nx - 2 + kTX - 1) / kTX);
 }
 
 bool modes_valid(int bx, int by) {
@@ -344,10 +502,11 @@ int launch(const void* h, const void* u, const void* v, const void* f,
            const void* dhbx, long long dhbx_stride, const void* dhby,
            long long dhby_stride, const void* dt, const void* g,
            const void* dx, const void* dy, const void* ok, void* h_out,
-           void* u_out, void* v_out, void* partial, void* max2, int nx,
-           int ny, int bx, int by, void* stream) {
+           void* u_out, void* v_out, void* max2, void* acc, void* ticket,
+           int nx, int ny, int bx, int by, void* stream) {
   if (nx < 3 || ny < 3 || !modes_valid(bx, by) ||
-      (dhbx == nullptr) != (dhby == nullptr))
+      (dhbx == nullptr) != (dhby == nullptr) ||
+      (long long)nx * ny > INT_MAX)             // 32-bit offsets in the kernel
     return (int)cudaErrorInvalidValue;
   StepArgs<T> a;
   a.h = (const T*)h;
@@ -370,22 +529,25 @@ int launch(const void* h, const void* u, const void* v, const void* f,
   a.out.u = (T*)u_out;
   a.out.v = (T*)v_out;
   a.out.ny = bx == kBxNone ? ny - 2 : ny;
-  a.partial = (T*)partial;
+  a.max2 = (T*)max2;
+  a.acc = (typename Bits<T>::type*)acc;
+  a.ticket = (unsigned int*)ticket;
   a.nx = nx;
   a.ny = ny;
   a.bx = bx;
   a.by = by;
-  const dim3 grid = grid_for(nx, ny);
-  const dim3 block(kTY, kTX);
+  const int bands = (ny - 2 + kOut - 1) / kOut;
+  const dim3 grid((bands + kWarps - 1) / kWarps, (nx - 2 + kRows - 1) / kRows);
   cudaStream_t s = (cudaStream_t)stream;
-  if (dhbx == nullptr)
-    richtmyer_kernel<T, true><<<grid, block, 0, s>>>(a);
+  const bool flat = dhbx == nullptr, row_fr = f_stride == 0 && r_stride == 0;
+  if (flat && row_fr)
+    richtmyer_kernel<T, true, true><<<grid, kWarps * kWarp, 0, s>>>(a);
+  else if (flat)
+    richtmyer_kernel<T, true, false><<<grid, kWarps * kWarp, 0, s>>>(a);
+  else if (row_fr)
+    richtmyer_kernel<T, false, true><<<grid, kWarps * kWarp, 0, s>>>(a);
   else
-    richtmyer_kernel<T, false><<<grid, block, 0, s>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  max_reduce_kernel<T><<<1, kReduceThreads, 0, s>>>(
-      (const T*)partial, (int)(grid.x * grid.y), (T*)max2);
+    richtmyer_kernel<T, false, false><<<grid, kWarps * kWarp, 0, s>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -393,25 +555,18 @@ int launch(const void* h, const void* u, const void* v, const void* f,
 
 extern "C" {
 
-// Number of per-block max2 partials the step writes for an [nx, ny] grid.
-int richtmyer_num_partials(int nx, int ny) {
-  if (nx < 3 || ny < 3) return 0;
-  const dim3 grid = grid_for(nx, ny);
-  return (int)(grid.x * grid.y);
-}
-
 int richtmyer_step_f32(const void* h, const void* u, const void* v,
                        const void* f, long long f_stride, const void* r,
                        long long r_stride, const void* dhbx,
                        long long dhbx_stride, const void* dhby,
                        long long dhby_stride, const void* dt, const void* g,
                        const void* dx, const void* dy, const void* ok,
-                       void* h_out, void* u_out, void* v_out, void* partial,
-                       void* max2, int nx, int ny, int bx, int by,
+                       void* h_out, void* u_out, void* v_out, void* max2,
+                       void* acc, void* ticket, int nx, int ny, int bx, int by,
                        void* stream) {
   return launch<float>(h, u, v, f, f_stride, r, r_stride, dhbx, dhbx_stride,
                        dhby, dhby_stride, dt, g, dx, dy, ok, h_out, u_out,
-                       v_out, partial, max2, nx, ny, bx, by, stream);
+                       v_out, max2, acc, ticket, nx, ny, bx, by, stream);
 }
 
 int richtmyer_step_f64(const void* h, const void* u, const void* v,
@@ -420,12 +575,12 @@ int richtmyer_step_f64(const void* h, const void* u, const void* v,
                        long long dhbx_stride, const void* dhby,
                        long long dhby_stride, const void* dt, const void* g,
                        const void* dx, const void* dy, const void* ok,
-                       void* h_out, void* u_out, void* v_out, void* partial,
-                       void* max2, int nx, int ny, int bx, int by,
+                       void* h_out, void* u_out, void* v_out, void* max2,
+                       void* acc, void* ticket, int nx, int ny, int bx, int by,
                        void* stream) {
   return launch<double>(h, u, v, f, f_stride, r, r_stride, dhbx, dhbx_stride,
                         dhby, dhby_stride, dt, g, dx, dy, ok, h_out, u_out,
-                        v_out, partial, max2, nx, ny, bx, by, stream);
+                        v_out, max2, acc, ticket, nx, ny, bx, by, stream);
 }
 
 }  // extern "C"

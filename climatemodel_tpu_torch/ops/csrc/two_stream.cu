@@ -12,10 +12,22 @@
 // headline size (4096 members x 59 cells), far below what the memory
 // system moves in the time the chain takes.
 //
-// lw_walk: one thread per member column keeps the whole walk in registers;
-// arrays are [n, b] with the member index contiguous, so every row's loads
-// and stores coalesce across a warp.  The TPU kernel's (8,128) sublane
-// packing has no meaning here, so K1 and K2 are one kernel.
+// lw_walk, on the [n, b] layout (member index contiguous; the TPU kernel's
+// (8,128) sublane packing has no meaning here, so K1 and K2 are one
+// kernel).  A block takes m = min(b, kLwMembers) members and walks their
+// levels from the top down in chunks of K levels, K as many as 48 KB
+// of shared memory hold (all of them for the march's grids: n = 59, 99 and
+// 'auto' grids of ~600 at m = 1), three phases a chunk:
+//  1. stage: every thread of the block over the flattened K x m tile, which
+//     is coalesced at b = 1 (lanes over levels) and at b = 4096 (lanes over
+//     members); T*T, sigma*(T^2*T^2), exp(+-dtau) and src*(1-e) of each
+//     level into shared memory, the phase-1 helper of net_stats_walk;
+//  2. the chains: one thread per member and stream walks x = x * e + s from
+//     shared memory in the plain order, carrying x from chunk to chunk;
+//  3. write: every thread stores the chunk's up and down, coalesced.
+// The earlier kernel walked a member per thread straight from device
+// memory: at the single world's batch of one, one thread on one SM waited
+// on two loads and two exps each level.
 //
 // net_stats_walk: one warp per member, on the march's own [b, r] rows (a
 // member's column contiguous), in three phases over a per-warp slice of
@@ -52,7 +64,7 @@
 //
 // Shared memory of net_stats_walk: 7 (n + 1) values a member (8.4 KB at
 // n = 149 in f64); above 48 KB (n > ~875 in f64) the launch opts in to the
-// larger dynamic size.
+// larger dynamic size.  lw_walk: 4 K m values, at most 48 KB.
 //
 // C interface (ctypes): pointers and the stream as void*, sizes as int.
 // Every entry point returns cudaGetLastError() after its launch.
@@ -62,8 +74,13 @@
 
 namespace {
 
-constexpr int kThreads = 128;
 constexpr int kWarp = 32;
+// lw_walk's members a block and threads a block at most, chosen by
+// measurement at 59 x 4096 (chip_compare.py on copies of the package with
+// the two constants edited; PERF.md)
+constexpr int kLwMembers = 16;
+constexpr int kLwThreads = 256;
+static_assert(2 * kLwMembers <= kLwThreads, "a thread for each chain");
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMinL = 2;
 constexpr int kMaxL = 32;
@@ -91,57 +108,86 @@ __device__ __forceinline__ double abs_(double x) { return fabs(x); }
 template <typename T>
 __device__ __forceinline__ T nan_max(T a, T b) { return (isnan(a) || a > b) ? a : b; }
 
-// One level of the walk from interface i+1 to interface i.
-template <typename T>
-__device__ __forceinline__ void walk_level(T& up, T& down, T temp, T dt) {
+// One level of both streams, everything that is off the chain: the
+// (e, s) pairs, x -> x * e + s, of the up (e = exp(dtau)) and the down
+// (e = exp(-dtau)) stream, s = sigma (T^2 T^2) (1 - e).
+template <typename T, typename P>
+__device__ __forceinline__ void stage_level(T temp, T dt, P& up, P& dn) {
+  const T one = static_cast<T>(1);
   const T sq = mul_rn(temp, temp);
   const T src = mul_rn(static_cast<T>(kSigma), mul_rn(sq, sq));
   const T ep = exp_acc(dt);
   const T em = exp_acc(-dt);
-  up = add_rn(mul_rn(up, ep), mul_rn(src, sub_rn(static_cast<T>(1), ep)));
-  down = add_rn(mul_rn(down, em), mul_rn(src, sub_rn(static_cast<T>(1), em)));
+  up = make_pair(ep, mul_rn(src, sub_rn(one, ep)));
+  dn = make_pair(em, mul_rn(src, sub_rn(one, em)));
+}
+
+// x = x * e + s down the levels k = n-1 .. 0 of one stream, c[k * stride] =
+// (e, s) on entry and c[k * stride].x = x on exit; returns the last x.
+// Eight pairs are loaded ahead of their steps; the chain is the (mul, add)
+// alone.
+template <typename P, typename T>
+__device__ __forceinline__ T affine_walk(P* c, T x, int n, int stride) {
+  int k = n - 1;
+  for (; k >= 7; k -= 8) {
+    P es[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) es[q] = c[(k - q) * stride];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      x = add_rn(mul_rn(x, es[q].x), es[q].y);
+      c[(k - q) * stride].x = x;
+    }
+  }
+  for (; k >= 0; --k) {
+    const P es = c[k * stride];
+    x = add_rn(mul_rn(x, es.x), es.y);
+    c[k * stride].x = x;
+  }
+  return x;
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kLwThreads)
 lw_walk_kernel(const T* __restrict__ temp, const T* __restrict__ dtau,
                const T* __restrict__ toa, T* __restrict__ up_out,
-               T* __restrict__ down_out, int n, int b) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= b) return;
-  T up = toa[j];
-  T down = static_cast<T>(0);
-  up_out[(size_t)n * b + j] = up;
-  down_out[(size_t)n * b + j] = down;
-  for (int i = n - 1; i >= 0; --i) {
-    const size_t k = (size_t)i * b + j;
-    walk_level(up, down, temp[k], dtau[k]);
-    up_out[k] = up;
-    down_out[k] = down;
+               T* __restrict__ down_out, int n, int b, int m, int chunk) {
+  using P = typename PairOf<T>::type;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int j0 = blockIdx.x * m;
+  const int mb = min(m, b - j0);                  // this block's members
+  P* su = reinterpret_cast<P*>(smem);             // [chunk][mb], up stream
+  P* sd = su + (size_t)chunk * mb;                // the same, down
+  const int tid = threadIdx.x;
+  const bool walker = tid < 2 * mb;               // threads mb.. walk down
+  const bool is_up = tid < mb;
+  const int jw = is_up ? tid : tid - mb;
+  T x = static_cast<T>(0);
+  if (walker) {
+    if (is_up) x = toa[j0 + jw];
+    (is_up ? up_out : down_out)[(size_t)n * b + j0 + jw] = x;
   }
-}
-
-// x = x * e + s down the levels i = n-1 .. 0 of one stream, c[i] = (e, s)
-// on entry and c[i].x = x on exit (c[n].x = the top value).  Eight pairs
-// are loaded ahead of their steps; the chain is the (mul, add) alone.
-template <typename P, typename T>
-__device__ __forceinline__ void affine_chain(P* c, T x, int n) {
-  c[n].x = x;
-  int i = n - 1;
-  for (; i >= 7; i -= 8) {
-    P es[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) es[k] = c[i - k];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      x = add_rn(mul_rn(x, es[k].x), es[k].y);
-      c[i - k].x = x;
+  for (int hi = n; hi > 0; hi -= chunk) {
+    const int lo = max(hi - chunk, 0);
+    const int cells = (hi - lo) * mb;
+    // 1. stage levels lo .. hi-1
+    for (int k = tid; k < cells; k += blockDim.x) {
+      const int li = k / mb, j = k - li * mb;
+      const size_t g = (size_t)(lo + li) * b + j0 + j;
+      stage_level(temp[g], dtau[g], su[k], sd[k]);
     }
-  }
-  for (; i >= 0; --i) {
-    const P es = c[i];
-    x = add_rn(mul_rn(x, es.x), es.y);
-    c[i].x = x;
+    __syncthreads();
+    // 2. the chains
+    if (walker) x = affine_walk((is_up ? su : sd) + jw, x, hi - lo, mb);
+    __syncthreads();
+    // 3. the fluxes of levels lo .. hi-1
+    for (int k = tid; k < cells; k += blockDim.x) {
+      const int li = k / mb, j = k - li * mb;
+      const size_t g = (size_t)(lo + li) * b + j0 + j;
+      up_out[g] = su[k].x;
+      down_out[g] = sd[k].x;
+    }
+    if (lo > 0) __syncthreads();
   }
 }
 
@@ -218,19 +264,10 @@ net_stats_walk_kernel(const T* __restrict__ temp, const T* __restrict__ dtau,
   const int lane = threadIdx.x;
   const size_t cells = (size_t)m * n;
   const size_t faces = (size_t)m * r;
-  const T one = static_cast<T>(1);
 
   // 1. off the chain, lanes over levels
-  for (int i = lane; i < n; i += kWarp) {
-    const T t = temp[cells + i];
-    const T d = dtau[cells + i];
-    const T sq = mul_rn(t, t);
-    const T src = mul_rn(static_cast<T>(kSigma), mul_rn(sq, sq));
-    const T ep = exp_acc(d);
-    const T em = exp_acc(-d);
-    up[i] = make_pair(ep, mul_rn(src, sub_rn(one, ep)));
-    dn[i] = make_pair(em, mul_rn(src, sub_rn(one, em)));
-  }
+  for (int i = lane; i < n; i += kWarp)
+    stage_level(temp[cells + i], dtau[cells + i], up[i], dn[i]);
   for (int i = lane; i < r; i += kWarp) {
     sw_up[i] = usw[faces + i];
     sw_dn[i] = dsw[faces + i];
@@ -239,9 +276,12 @@ net_stats_walk_kernel(const T* __restrict__ temp, const T* __restrict__ dtau,
   __syncwarp();
 
   // 2. the chains: lane 0 walks up from the TOA flux, lane 1 down from 0
-  if (lane < 2)
-    affine_chain(lane == 0 ? up : dn, lane == 0 ? toa[m] : static_cast<T>(0),
-                 n);
+  if (lane < 2) {
+    P* c = lane == 0 ? up : dn;
+    const T top = lane == 0 ? toa[m] : static_cast<T>(0);
+    c[n].x = top;
+    affine_walk(c, top, n, 1);
+  }
   __syncwarp();
 
   // 3. net and the statistics, lanes over interfaces
@@ -269,13 +309,25 @@ net_stats_walk_kernel(const T* __restrict__ temp, const T* __restrict__ dtau,
   }
 }
 
-inline int blocks_for(int b) { return (b + kThreads - 1) / kThreads; }
-
 template <typename T>
 int launch_lw_walk(const void* temp, const void* dtau, const void* toa,
                    void* up, void* down, int n, int b, void* stream) {
-  lw_walk_kernel<T><<<blocks_for(b), kThreads, 0, (cudaStream_t)stream>>>(
-      (const T*)temp, (const T*)dtau, (const T*)toa, (T*)up, (T*)down, n, b);
+  if (n < 0 || b < 1) return (int)cudaErrorInvalidValue;
+  const int m = min(kLwMembers, b);
+  // a thread for each of the tile's cells and each chain (2 m), up to
+  // kLwThreads, in whole warps
+  const long long cells = (long long)max(n, 2) * m;
+  const int threads = cells >= kLwThreads
+                          ? kLwThreads
+                          : (int)(cells + kWarp - 1) / kWarp * kWarp;
+  const size_t level = 2 * sizeof(typename PairOf<T>::type) * m;
+  const int chunk = max(min(n, (int)(kStaticSmem / level)), 1);
+  if ((size_t)chunk * level > (size_t)kStaticSmem)
+    return (int)cudaErrorInvalidValue;
+  lw_walk_kernel<T><<<(b + m - 1) / m, threads, chunk * level,
+                      (cudaStream_t)stream>>>(
+      (const T*)temp, (const T*)dtau, (const T*)toa, (T*)up, (T*)down, n, b,
+      m, chunk);
   return (int)cudaGetLastError();
 }
 

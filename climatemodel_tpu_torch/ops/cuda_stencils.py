@@ -11,6 +11,11 @@ with ``torch.empty`` (or writes into ``out``), launches on the current
 stream, raises if the launch failed, and adds one to its mode's entry of
 :data:`launch_counts`.  It never computes on the CPU: the plain versions and
 the dispatchers are in ``ops/stencils.py``.
+
+The step is one launch: the kernel reduces max2 itself, through an
+accumulator and a block ticket that the wrapper allocates once per device
+and stream (:func:`_max2_scratch`, zeros) and that every launch leaves at
+zero.
 """
 from __future__ import annotations
 
@@ -31,6 +36,10 @@ _BX = {None: 0, 'walls': 1, 'periodic': 2, 'given': 3}
 _BY = {None: 0, 'walls': 1, 'periodic': 2}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
+# (device index, stream) -> int64 [3]: the f64 max2 accumulator, the f32 one
+# (the low half of the second word) and the block ticket
+_SCRATCH = {}
+
 
 def reset_launch_counts():
     for k in launch_counts:
@@ -44,11 +53,18 @@ def library() -> ctypes.CDLL:
     for s in _SUFFIX.values():
         fn = getattr(lib, f'richtmyer_step_{s}')
         fn.argtypes = ([_P, _P, _P, _P, _L, _P, _L, _P, _L, _P, _L]
-                       + [_P] * 10 + [_I, _I, _I, _I, _P])
+                       + [_P] * 11 + [_I] * 4 + [_P])
         fn.restype = _I
-    lib.richtmyer_num_partials.argtypes = [_I, _I]
-    lib.richtmyer_num_partials.restype = _I
     return lib
+
+
+def _max2_scratch(device, stream):
+    """The max2 accumulators and block ticket of one device and stream:
+    allocated once as zeros; every launch leaves them at zero."""
+    key = (device.index, stream)
+    if key not in _SCRATCH:
+        _SCRATCH[key] = torch.zeros(3, dtype=torch.int64, device=device)
+    return _SCRATCH[key]
 
 
 def _interior(name, x, nxi, nyi, ref, row_ok):
@@ -135,19 +151,19 @@ def richtmyer_step(h, u, v, f_cor, r_damp, dhb_dx, dhb_dy, dt, ok, g, dx, dy,
                 raise ValueError(f'richtmyer_step: {name} shares memory with '
                                  f'an input')
     lib = library()
-    partial = torch.empty(lib.richtmyer_num_partials(nx, ny), dtype=h.dtype,
-                          device=h.device)
     max2 = torch.empty((), dtype=h.dtype, device=h.device)
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
+        scratch = _max2_scratch(h.device, stream).data_ptr()
+        acc = scratch if h.dtype == torch.float64 else scratch + 8
         err = getattr(lib, f'richtmyer_step_{_SUFFIX[h.dtype]}')(
             h.data_ptr(), u.data_ptr(), v.data_ptr(),
             f_cor.data_ptr(), f_stride, r_damp.data_ptr(), r_stride,
             ptr(grads[0]), grads[1], ptr(grads[2]), grads[3],
             *(x.data_ptr() for x in scal), ok.data_ptr(),
-            *(o.data_ptr() for o in out), partial.data_ptr(),
-            max2.data_ptr(), nx, ny, _BX[bx], _BY[by], stream)
+            *(o.data_ptr() for o in out), max2.data_ptr(), acc, scratch + 16,
+            nx, ny, _BX[bx], _BY[by], stream)
     _raise_on(err, 'richtmyer_step')
     launch_counts['richtmyer_step_interior' if bx is None
                   else 'richtmyer_step_bc'] += 1

@@ -17,10 +17,11 @@ import torch
 
 from climatemodel_tpu.models import shallow_water as jsw
 from climatemodel_tpu.ops import stencils as jst
-from climatemodel_tpu.ops.pallas_stencils import (pad_frame,
+from climatemodel_tpu.ops.pallas_stencils import (_fused_update,
+                                                  frame_supports, pad_frame,
                                                   richtmyer_step_frame,
                                                   richtmyer_step_interior,
-                                                  unpad_frame)
+                                                  supports, unpad_frame)
 from climatemodel_tpu_torch.models import shallow_water as psw
 from climatemodel_tpu_torch.ops import stencils as pst
 
@@ -138,19 +139,22 @@ def _k5_inputs(nx, ny, seed, flat, dx=1e5, dy=1e5):
     return d, dhb
 
 
-def _k5_both(d, dhb, dt, ok, f, r, dx=1e5, dy=1e5, g=9.81):
-    j = lambda a: None if a is None else jnp.asarray(a)  # noqa: E731
+def _k5_port(d, dhb, dt, ok, f, r, dx=1e5, dy=1e5, g=9.81):
     p = lambda a: None if a is None else _t(a)           # noqa: E731
-    ref = richtmyer_step_interior(
-        j(d['h']), j(d['u']), j(d['v']), j(f), j(r), j(dhb[0]), j(dhb[1]),
-        jnp.float64(dt), jnp.asarray(ok), jnp.float64(g), jnp.float64(dx),
-        jnp.float64(dy), interpret=True)
-    port = pst.richtmyer_step_interior(
+    return pst.richtmyer_step_interior(
         p(d['h']), p(d['u']), p(d['v']), p(f), p(r), p(dhb[0]), p(dhb[1]),
         torch.tensor(dt, dtype=torch.float64), torch.tensor(ok),
         torch.tensor(g, dtype=torch.float64), torch.tensor(
             dx, dtype=torch.float64), torch.tensor(dy, dtype=torch.float64))
-    return port, ref
+
+
+def _k5_both(d, dhb, dt, ok, f, r, dx=1e5, dy=1e5, g=9.81):
+    j = lambda a: None if a is None else jnp.asarray(a)  # noqa: E731
+    ref = richtmyer_step_interior(
+        j(d['h']), j(d['u']), j(d['v']), j(f), j(r), j(dhb[0]), j(dhb[1]),
+        jnp.float64(dt), jnp.asarray(ok), jnp.float64(g), jnp.float64(dx),
+        jnp.float64(dy), interpret=True)
+    return _k5_port(d, dhb, dt, ok, f, r, dx, dy, g), ref
 
 
 @pytest.mark.parametrize('shape,flat', [((34, 30), True), ((34, 30), False),
@@ -251,6 +255,94 @@ def test_k6_row_geometry_matches_full_fields(bx, by):
                               r.expand(32, -1).contiguous(), None, None, *args)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+# --------------------------------------------------------------------------
+# K5 and K6 at the shapes that break the CUDA kernel's strips: nx = 3 and
+# ny = 3, rows not a multiple of its strip (12) or columns of its band (30),
+# one strip of one band, bands over several blocks; and two shapes the
+# Pallas tiling takes (nx - 2 = 8, 16)
+# --------------------------------------------------------------------------
+
+EDGE_SHAPES = [(3, 3), (3, 40), (40, 3), (12, 20), (51, 95), (20, 250),
+               (10, 250), (18, 95)]
+K6_MODES = [(bx, by) for bx in ('walls', 'periodic', 'given')
+            for by in ('walls', 'periodic')]
+
+
+def _fused_ref(h, u, v, f, r, dhb, dt, ok, g=9.81, dx=1e5, dy=1e5):
+    """JAX's reference of K5 on a grid the Pallas tiling does not take: the
+    Pallas kernels' body, ``_fused_update``, over the whole grid as one
+    band, with sx = dt / dx as the JAX wrapper forms it."""
+    j = lambda a: None if a is None else jnp.asarray(a)  # noqa: E731
+    dt, g, dx, dy = (jnp.float64(x) for x in (dt, g, dx, dy))
+    return _fused_update(j(h), j(u), j(v), dt, g, dt / dx, dt / dy, j(f),
+                         j(dhb[0]), j(dhb[1]), j(r), jnp.asarray(ok))
+
+
+@pytest.mark.parametrize('flat', [True, False])
+@pytest.mark.parametrize('shape', EDGE_SHAPES)
+def test_k5_plain_at_edge_shapes(shape, flat):
+    """The plain K5 at the edge shapes, against the Pallas kernel in
+    interpret mode where ``supports`` takes the shape and against its body
+    over the whole grid elsewhere: all four outputs within ULP with ok True,
+    the pre-step interior exactly with ok False."""
+    nx, ny = shape
+    d, dhb = _k5_inputs(nx, ny, nx * 1000 + ny, flat)
+    rows = slice(1, 2) if flat else slice(1, -1)     # row f, r when flat
+    f, r = d['f'][rows, 1:-1], d['r'][rows, 1:-1]
+    for ok in (True, False):
+        if supports(nx, ny):
+            # the Pallas K5 takes full fields: the row, broadcast
+            port = _k5_port(d, dhb, 60.0, ok, f, r)
+            _, ref = _k5_both(d, dhb, 60.0, ok,
+                              *(np.broadcast_to(x, (nx - 2, ny - 2)).copy()
+                                for x in (f, r)))
+        else:
+            port = _k5_port(d, dhb, 60.0, ok, f, r)
+            ref = _fused_ref(d['h'], d['u'], d['v'], f, r, dhb, 60.0, ok)
+        for p, q in zip(port, ref):
+            _close(p.numpy(), q)
+        if not ok:
+            for p, pre in zip(port, (d['h'], d['u'], d['v'])):
+                np.testing.assert_array_equal(p.numpy(), pre[1:-1, 1:-1])
+
+
+@pytest.mark.parametrize('bx,by', K6_MODES)
+@pytest.mark.parametrize('shape', EDGE_SHAPES)
+def test_k6_plain_at_edge_shapes(shape, bx, by):
+    """The plain K6 at the edge shapes, every boundary mode, mountain
+    orography and full f and r: against the Pallas frame kernel in
+    interpret mode where ``frame_supports`` takes the shape, elsewhere
+    against the Pallas body over the whole grid followed by JAX's
+    ``apply_boundary_conditions`` (what the frame kernel computes).  Every
+    cell within ULP ('given': the interior and the y ghost lanes)."""
+    nx, ny = shape
+    seed = nx * 1000 + ny + 7
+    keep = slice(1, -1) if bx == 'given' else slice(None)
+    if frame_supports(nx, ny):
+        port, ref, max2 = _k6_both(bx, by, flat=False, rows=False,
+                                   seed=seed, nx=nx, ny=ny)
+    else:
+        d, dhb = _k5_inputs(nx, ny, seed, False)
+        h, u, v = (np.asarray(a) for a in jsw.apply_boundary_conditions(
+            d['h'], d['u'], d['v'], 'walls' if bx == 'given' else bx, by))
+        f, r = d['f'][1:-1, 1:-1], d['r'][1:-1, 1:-1]
+        inner = _fused_ref(h, u, v, f, r, dhb, 60.0, True)
+        full = [a.copy() for a in (h, u, v)]
+        for a, x in zip(full, inner[:3]):
+            a[1:-1, 1:-1] = np.asarray(x)
+        ref = [np.asarray(a) for a in
+               jsw.apply_boundary_conditions(*full, bx, by)]
+        max2 = float(inner[3])
+        p = lambda a: None if a is None else _t(a)  # noqa: E731
+        scal = lambda x: torch.tensor(x, dtype=torch.float64)  # noqa: E731
+        port = pst.richtmyer_step_bc(
+            p(h), p(u), p(v), p(f), p(r), p(dhb[0]), p(dhb[1]), scal(60.0),
+            torch.tensor(True), scal(9.81), scal(1e5), scal(1e5), bx, by)
+    for a, b in zip(port[:3], ref):
+        _close(a.numpy()[keep], b[keep])
+    _close(port[3], max2)
 
 
 def test_k6_out_buffers_and_mode_checks():

@@ -70,6 +70,35 @@ def test_lw_walk_matches_jax_sequential_and_pallas(n, b, dtype):
     assert torch.equal(up_d, up_p) and torch.equal(dn_d, dn_p)
 
 
+# the grey single world's nz=100 (99 cells, tests/test_grey_rce.py:27) and
+# the thermosphere world's 'auto' grid (598 interfaces, radiation_script.py
+# :32-36 through cli.grey_world_kwargs('thermosphere')): K1's batch of one
+@pytest.mark.parametrize('dtype', [np.float64, np.float32])
+@pytest.mark.parametrize('n', [99, 597])
+def test_lw_flux_single_column_matches_jax(n, dtype):
+    """``lw_flux`` of one column ([n] cells, batch shape [1]), the shape at
+    which the single world launches K1: against JAX's ``lw_flux`` and, in
+    f32, the Pallas kernel (K1) in interpret mode."""
+    rng = np.random.default_rng(n)
+    T, dtau, toa = _walk_inputs(rng, n, 1, dtype)
+    up_p, dn_p = pts.lw_flux(torch.from_numpy(T), torch.from_numpy(dtau[:, 0]),
+                             torch.from_numpy(toa))
+    assert up_p.shape == (n + 1, 1) and up_p.dtype == T_DTYPE[dtype]
+    refs = [jts.lw_flux(jnp.asarray(T), jnp.asarray(dtau[:, 0]),
+                        jnp.asarray(toa))]
+    if dtype == np.float32:
+        refs.append(lw_flux_lanes(jnp.asarray(T), jnp.asarray(dtau),
+                                  jnp.asarray(toa), interpret=True))
+    for up_j, dn_j in refs:
+        assert _rel_err(up_p, up_j) <= REL_BOUND[dtype]
+        assert _rel_err(dn_p, dn_j) <= REL_BOUND[dtype]
+    # the column-shared dtau broadcasts like a per-member one
+    up_b, dn_b = pts.lw_flux_sequential(torch.from_numpy(T),
+                                        torch.from_numpy(dtau),
+                                        torch.from_numpy(toa))
+    assert torch.equal(up_b, up_p) and torch.equal(dn_b, dn_p)
+
+
 def _stats_inputs(rng, n, b, dtype=np.float32):
     T, dtau, toa = _walk_inputs(rng, n, b, dtype)
     usw = (100 * rng.random((n + 1, b))).astype(dtype)
