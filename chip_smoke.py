@@ -5,7 +5,11 @@ GPU: builds the CUDA kernels from ``climatemodel_tpu_torch/ops/csrc/`` (one
 version on the card, probes the f32 division the kernels compile to, drives
 the grey radiative-equilibrium ensemble march at the headline size and the
 radiative-convective marches (the 512-member convective ensemble and the
-single thermosphere world, both adjustment methods) and the shallow-water
+single thermosphere world, both adjustment methods), the ice-albedo EBM
+(bench_ebm's latitude world with one dt shared by its latitudes and as an
+ensemble of single columns, and a stellar hysteresis sweep, checked
+against the same sweep on the CPU), the march options (check_every,
+dip_memory, bake_forcing, save=True) and the shallow-water
 engine (bench_sw's El Nino world at 2050 x 1026 through the fused Richtmyer
 kernel, and ``ShallowWater.time_step`` through its interior mode), checks
 the card against the CPU, profiles the marches and the shallow-water run,
@@ -53,15 +57,31 @@ ISO_SHAPES = [(512, 149), (4096, 59), (7, 149), (129, 64), (1, 8), (17, 255),
 # percentile of 60 interfaces) and the convective ensemble's (150: L = 9),
 # ragged shapes, L = 2 and L = 32
 K3_CASES = [(59, 4096, 4), (149, 512, 9), (149, 16, 9), (20, 1025, 3),
-            (5, 9, 4), (59, 130, 2), (63, 100, 32), (31, 7, 32)]
+            (5, 9, 4), (59, 130, 2), (63, 100, 32), (31, 7, 32), (39, 64, 3)]
 # K1 (n cells, b members): the grey single world (nz=100, batch 1: where K1
 # is launched on the main path), the headline's width, an 'auto' grid of
 # ~600 levels at batch 1, ragged batches, and n above one chunk of the
 # block's 48 KB of shared memory (192 levels at 16 members in f32, 96 in
-# f64: n = 700 is 4 / 8 chunks, n = 200 is 2 / 3)
+# f64: n = 700 is 4 / 8 chunks, n = 200 is 2 / 3), and the EBM's latitude
+# world (39 cells x 64 latitudes)
 K1_SHAPES = [(99, 1), (59, 4096), (59, 7), (24, 130), (60, 1024), (59, 1025),
-             (601, 1), (200, 40), (700, 33)]
+             (601, 1), (200, 40), (700, 33), (39, 64)]
 K1_MAIN = (99, 1)
+
+# bench_ebm (bench.py:556-630): the icy-pole latitude world, 64 latitudes x
+# nz=40, f32, marched with one dt shared by the latitudes (K1 at [39, 64])
+# and as 64 single-column members (K3 at 64 x 39, f32, then f64)
+EBM = dict(ny=64, nz=40, flux_thresh=1e-3)
+# a GreyAlbedoFeedback stellar sweep of that world size
+# (tests/test_ice_albedo.py:64-84 cut to 7 values): 13 sweep points
+SWEEP = dict(F=(600.0, 2250.0, 7), delta_albedo=0.1, flux_thresh=1e-3)
+# the spread of two free-running marches of one world
+# (tests/test_torch_ice_albedo.py): a latitude whose albedo differs between
+# the card's sweep and the CPU's must end a march there this close to T_ice
+SWEEP_T_BOUND_K = 1.5
+# bench_grey_single_column (bench.py:377-405): the thermosphere world at
+# nz=150, radiative, flux_thresh 1e-3; and bench_rce_conv's (bench.py:426)
+MARCH_OPTIONS = dict(nz=150, flux_thresh=1e-3, conv_t_end=30.0)
 
 
 def thermosphere_kwargs(p_surface_earth):
@@ -75,6 +95,7 @@ def thermosphere_kwargs(p_surface_earth):
 # The card's published peaks (H100 SXM at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+F64_OPS_PER_S = 34e12
 
 # Kernel vs plain PyTorch version on the card, in units in the last place of
 # the kernel's dtype.  Both take the same ops in the same order with one
@@ -696,6 +717,38 @@ def phase_conv_main(ens, GreyGas, p_surface_earth, mods, dev):
     return out, (states, forcings, p_int, p_c, world)
 
 
+def device_rows(prof):
+    """(device us, launches, name) of each kernel that a
+    ``torch.profiler`` profile recorded on the device."""
+    rows = [(getattr(e, 'device_time_total', None)
+             or getattr(e, 'cuda_time_total', 0), e.count, e.key)
+            for e in prof.key_averages()]
+    return [r for r in rows if r[0] > 0]
+
+
+def phase_ebm_profile(GreyGas, p_surface_earth):
+    """Where a shared-dt EBM march's time goes (phase 4d): one march of
+    bench_ebm's world under ``torch.profiler`` (CUDA activity only): wall,
+    device busy time, device operations a step, the top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    w = icy_ebm(GreyGas, p_surface_earth)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        w.evolve_to_equilibrium(flux_thresh=EBM['flux_thresh'], save=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = device_rows(prof)
+    busy = sum(r[0] for r in rows) / 1e6
+    steps = int(w._equilibrium_info.steps)
+    emit('ebm_profile', wall_s=wall, steps=steps,
+         ms_per_step=1e3 * wall / steps, device_busy_s=busy,
+         device_idle_share=1 - busy / wall if busy > 0 else None,
+         device_ops_per_step=sum(r[1] for r in rows) / steps,
+         top_kernels_ms=[[k[:60], round(t / 1e3, 3), c] for t, c, k in
+                         sorted(rows, reverse=True)[:8]])
+
+
 def phase_conv_profile(ens, conv_state):
     """Where a convective ensemble march's time goes (phase 4c): one march
     per method under ``torch.profiler`` (CUDA activity only): wall, device
@@ -714,10 +767,7 @@ def phase_conv_profile(ens, conv_state):
                 max_steps=CONV['max_steps'])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        rows = [(getattr(e, 'device_time_total', None)
-                 or getattr(e, 'cuda_time_total', 0), e.count, e.key)
-                for e in prof.key_averages()]
-        rows = [r for r in rows if r[0] > 0]           # device work only
+        rows = device_rows(prof)
         busy = sum(r[0] for r in rows) / 1e6
         iters = int(info.steps.max())
         res[method] = dict(
@@ -761,6 +811,266 @@ def phase_conv_card_vs_cpu(ens, conv_state, dev, max_steps=400):
 
 # bench_sw (bench.py:141): the El Nino wind-feedback world scaled to
 # 2050 x 1026, f32, 400 steps; its CPU smoke size (bench.py:781)
+def icy_ebm(GreyGas, p_surface_earth, **kw):
+    """bench.py:565-570 ``_icy_ebm``: the scale-height world at EBM's size
+    with icy poles (albedo 0.6 poleward of 60 degrees, 0.3 elsewhere)."""
+    import numpy as np
+    return GreyGas(nz=EBM['nz'], ny=EBM['ny'], tau_lw_func='scale_height',
+                   tau_lw_func_args=[0.22 * p_surface_earth, 4.0],
+                   albedo=lambda lat: np.where(np.abs(lat) > 60, 0.6, 0.3),
+                   **kw)
+
+
+def phase_ebm_main(ens, GreyGas, p_surface_earth, mods):
+    """bench_ebm on the card (phase 3c), with its names: the latitude world
+    built without naming a device, marched with one dt shared by its
+    latitudes (K1 at [39, 64]), best of 3 after a warm run; then its
+    latitudes as independent single-column members
+    (``grey_latitude_ensemble``, K3 at 64 x 39), best of 3 after a warm
+    run, and their f64 finish.  Returns each path's launches."""
+    import numpy as np
+    import torch
+    ft = EBM['flux_thresh']
+    reset_counts(mods)
+    warm = icy_ebm(GreyGas, p_surface_earth)
+    check(warm.device.type == 'cuda', 'GreyGas did not default to the card')
+    warm.evolve_to_equilibrium(flux_thresh=ft, save=False)
+    torch.cuda.synchronize()
+    wall = float('inf')
+    for _ in range(3):                   # best of 3, a fresh world a trial
+        w = icy_ebm(GreyGas, p_surface_earth)
+        t0 = time.perf_counter()
+        w.evolve_to_equilibrium(flux_thresh=ft, save=False)
+        torch.cuda.synchronize()
+        if time.perf_counter() - t0 < wall:
+            wall, best = time.perf_counter() - t0, w
+    shared_launches = read_counts(mods)
+    eq = best._equilibrium_info
+    res = dict(ny=EBM['ny'], nz=best.nz,
+               model_days_per_sec=float(best.state.t[0]) / 86400.0 / wall,
+               steps=int(eq.steps), wall_s=wall,
+               equilibrium=bool(eq.equilibrium), timed_out=bool(eq.timed_out),
+               launches=shared_launches)
+
+    states, forcings, p_int, p_c = ens.grey_latitude_ensemble(
+        icy_ebm(GreyGas, p_surface_earth))
+
+    def run():
+        return ens.grey_evolve_ensemble(states, forcings, p_int, p_c, ft)
+    reset_counts(mods)
+    out = run()
+    torch.cuda.synchronize()
+    wall_e = float('inf')
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall_e = min(wall_e, time.perf_counter() - t0)
+    f32_launches = read_counts(mods)
+    fs, info = out
+    reset_counts(mods)
+    t0 = time.perf_counter()
+    fs_r, info_r, finished = ens.grey_finish_unconverged_f64(
+        fs, info, forcings, p_int, p_c, ft)
+    torch.cuda.synchronize()
+    f64_launches = read_counts(mods)
+    res['independent_dt_ensemble'] = dict(
+        model_days_per_sec=float(fs.t.double().sum()) / 86400.0 / wall_e,
+        wall_s=wall_e, total_steps=int(info.steps.sum()),
+        lockstep_iterations=int(info.steps.max()),
+        converged_fraction_f32=float(info.equilibrium.double().mean()),
+        f64_finish_wall_s=time.perf_counter() - t0,
+        f64_finished_members=int(len(finished)),
+        converged_fraction=float(info_r.equilibrium.double().mean()),
+        nan_after_f64=int(info_r.nan.sum()),
+        failed_after_f64=int(info_r.failed.sum()),
+        launches_f32=f32_launches, launches_f64=f64_launches)
+    emit('ebm_main', **res)
+    ind = res['independent_dt_ensemble']
+    check(not (bool(eq.nan) or bool(eq.failed)), 'EBM shared-dt march '
+          'aborted')
+    check(shared_launches['lw_walk'] > 0, 'K1 never launched on the '
+          'shared-dt EBM march')
+    check(f32_launches['net_stats_walk'] > 0, 'K3 never launched on the '
+          'EBM ensemble')
+    check(ind['f64_finished_members'] == 0
+          or f64_launches['net_stats_walk'] > 0,
+          'K3 never launched in the EBM f64 finish')
+    check(ind['converged_fraction'] == 1.0,
+          f'EBM ensemble converged {ind["converged_fraction"]} after f64')
+    check(bool(torch.isfinite(fs_r.T).all()), 'non-finite EBM temperatures')
+    check(np.isfinite(best.T).all(), 'non-finite EBM world temperatures')
+    return {k: shared_launches[k] + f32_launches[k] + f64_launches[k]
+            for k in shared_launches}
+
+
+def run_sweep(pice, p_surface_earth, sweep, ebm, device=None):
+    """The ``sweep`` (as SWEEP) of a GreyAlbedoFeedback world of ``ebm``'s
+    size (as EBM) on ``device`` (the card when None).  Returns the sweep's
+    outputs, the surface temperature after each of its marches by sweep
+    point, and its wall."""
+    import numpy as np
+    kw = {} if device is None else dict(device=device)
+    exp = pice.GreyAlbedoFeedback(
+        4.0, np.linspace(*sweep['F']), nz=ebm['nz'], ny=ebm['ny'],
+        tau_lw_func='scale_height',
+        tau_lw_func_args=[0.22 * p_surface_earth, 4.0], **kw)
+    world, marches, point = exp.grey_world, [], [-1]
+    update, evolve = exp.update_albedo, world.evolve_to_equilibrium
+
+    def update_albedo(*args, **kwargs):
+        point[0] += 1
+        return update(*args, **kwargs)
+
+    def evolve_to_equilibrium(*args, **kwargs):
+        out = evolve(*args, **kwargs)
+        marches.append((point[0], world.T[0].copy()))
+        return out
+    exp.update_albedo = update_albedo
+    world.evolve_to_equilibrium = evolve_to_equilibrium
+    t0 = time.perf_counter()
+    albedo, ice_latitude, T_surface = exp.run(
+        delta_albedo=sweep['delta_albedo'],
+        delta_net_flux_thresh=sweep['flux_thresh'])
+    return dict(values=exp.changing_param_values, albedo=np.array(albedo),
+                ice_latitude=ice_latitude, T_surface=np.array(T_surface),
+                marches=marches, T_ice=exp.T_ice, device=str(world.device),
+                wall_s=time.perf_counter() - t0)
+
+
+def cpu_sweep(sweep, ebm):
+    """:func:`run_sweep` on the CPU, for a process of its own."""
+    import torch
+    torch.set_num_threads(2)
+    sys.path.insert(0, str(ROOT))
+    from climatemodel_tpu_torch.constants import p_surface_earth
+    from climatemodel_tpu_torch.models import ice_albedo as pice
+    return run_sweep(pice, p_surface_earth, sweep, ebm, device='cpu')
+
+
+def phase_ebm_sweep(pice, p_surface_earth, mods):
+    """The ice-albedo stellar sweep on the card (phase 3d), f32, with the
+    physics of tests/test_ice_albedo.py:34-84 (albedos in {0.3, 0.6}, ice
+    grows on the cooling branch, hysteresis); the same sweep on the CPU, in
+    a spawned process while the card runs, gives the same albedos and
+    ice-edge latitudes up to the first sweep point where a latitude
+    differs, and there a march on each device ends with that latitude
+    within SWEEP_T_BOUND_K of T_ice.  Returns the launches."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+    with ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context('spawn')) as pool:
+        cpu_future = pool.submit(cpu_sweep, SWEEP, EBM)
+        reset_counts(mods)
+        card = run_sweep(pice, p_surface_earth, SWEEP, EBM)
+        launches = read_counts(mods)
+        cpu = cpu_future.result()
+    values, ice = card['values'], card['ice_latitude']
+    n_cool = int(values.argmin()) + 1
+    cooling = ice[:n_cool]
+    cool = dict(zip(values[:n_cool], ice[:n_cool]))
+    warm = dict(zip(values[n_cool - 1:], ice[n_cool - 1:]))
+    shared = [v for v in cool if v in warm]
+    physics = dict(
+        albedos_two_valued=bool(set(np.unique(card['albedo'])) <= {0.3, 0.6}),
+        ice_grows_cooling=bool(all(a >= b for a, b in
+                                   zip(cooling, cooling[1:]))
+                               and ice[n_cool - 1] < ice[0]),
+        hysteresis=bool(all(warm[v] <= cool[v] for v in shared)
+                        and any(warm[v] < cool[v] for v in shared)))
+
+    def margin(run, k, lats):
+        """The least distance to T_ice, over the marches at sweep point k,
+        of the farthest of latitudes ``lats``."""
+        return min(float(np.abs(T[lats] - run['T_ice']).max())
+                   for p, T in run['marches'] if p == k)
+    flip, dT = None, 0.0
+    for k in range(len(values)):
+        if not np.array_equal(card['albedo'][k], cpu['albedo'][k]):
+            lats = np.nonzero(card['albedo'][k] != cpu['albedo'][k])[0]
+            flip = dict(sweep_point=k, latitudes=lats.tolist(),
+                        card_margin_K=margin(card, k, lats),
+                        cpu_margin_K=margin(cpu, k, lats))
+            break
+        dT = max(dT, float(np.abs(card['T_surface'][k]
+                                  - cpu['T_surface'][k]).max()))
+    emit('ebm_sweep', values=values.tolist(), ice_latitude=ice,
+         ice_latitude_cpu=cpu['ice_latitude'], wall_s=card['wall_s'],
+         cpu_wall_s=cpu['wall_s'], marches=len(card['marches']),
+         cpu_device=cpu['device'], max_T_surface_diff_K=dT,
+         first_differing_point=flip, launches=launches, **physics)
+    check(all(physics.values()), f'EBM sweep physics: {physics}')
+    check(launches['lw_walk'] > 0, 'K1 never launched on the sweep')
+    check(flip is None or max(flip['card_margin_K'], flip['cpu_margin_K'])
+          <= SWEEP_T_BOUND_K, f'card and CPU sweeps differ at {flip}')
+    return launches
+
+
+def phase_march_options(GreyGas, p_surface_earth, mods):
+    """The march options on the card (phase 3e): bench_grey_single_column's
+    rows (bench.py:377-405) — the thermosphere world at nz=150 marched per
+    step, with check_every=8 and with check_every=8 and dip_memory —
+    beside bake_forcing and save=True; and bench_rce_conv's reference row
+    with its baked and dip-memory variants (bench.py:426-460).  The dip
+    and baked marches and the snapshot march's last temperature must equal
+    the per-step march's bit for bit.  Returns the launches."""
+    import torch
+    kw = thermosphere_kwargs(p_surface_earth)
+    rows, worlds = {}, {}
+
+    def march(key, **opts):
+        w = GreyGas(nz=MARCH_OPTIONS['nz'], ny=1, **kw)
+        t0 = time.perf_counter()
+        data = w.evolve_to_equilibrium(
+            flux_thresh=MARCH_OPTIONS['flux_thresh'], **opts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        eq = w._equilibrium_info
+        rows[key] = dict(steps=int(eq.steps), wall_s=wall,
+                         ms_per_step=1e3 * wall / int(eq.steps),
+                         model_days_per_sec=float(w.state.t[0]) / 86400.0
+                         / wall, equilibrium=bool(eq.equilibrium))
+        worlds[key] = w
+        return data
+    reset_counts(mods)
+    radiative = dict(save=False)
+    conv = dict(save=False, convective_adjust=True,
+                t_end=MARCH_OPTIONS['conv_t_end'])
+    march('per_step', **radiative)         # a warm march, then the timed one
+    march('per_step', **radiative)
+    march('check_every_8', check_every=8, **radiative)
+    march('check_every_8_dip', check_every=8, dip_memory=True, **radiative)
+    march('baked_variant', bake_forcing=True, **radiative)
+    data = march('save', save=True)
+    march('conv_reference', **conv)
+    march('conv_baked_variant', bake_forcing=True, **conv)
+    march('conv_dip_memory_variant', check_every=8, dip_memory=True, **conv)
+    launches = read_counts(mods)
+
+    def same(a, b):
+        wa, wb = worlds[a], worlds[b]
+        return (torch.equal(wa.state.T, wb.state.T)
+                and rows[a]['steps'] == rows[b]['steps'])
+    bit_equal = dict(
+        check_every_8_dip=same('check_every_8_dip', 'per_step'),
+        baked_variant=same('baked_variant', 'per_step'),
+        save=(bool((torch.from_numpy(data['T'][-1])
+                    == worlds['per_step'].state.T[0].cpu()).all())
+              and len(data['t']) == rows['save']['steps'] + 1),
+        conv_baked_variant=same('conv_baked_variant', 'conv_reference'),
+        conv_dip_memory_variant=same('conv_dip_memory_variant',
+                                     'conv_reference'))
+    emit('march_options', nz=worlds['per_step'].nz, rows=rows,
+         bit_equal_to_per_step=bit_equal, launches=launches)
+    check(all(bit_equal.values()), f'march options differ: {bit_equal}')
+    check(all(r['equilibrium'] for r in rows.values()),
+          'a march option did not converge')
+    check(launches['lw_walk'] > 0, 'K1 never launched on the march options')
+    return launches
+
+
 SW = dict(nx=2050, ny=1026, nt=400)
 SW_SMOKE = dict(nx=258, ny=130, nt=400)
 SW_RAGGED = (37, 29)
@@ -1116,10 +1426,7 @@ def phase_sw_profile(psw, Omega, R_earth, dev, nt=100):
         psw.sw_simulate(world.state, world.params, nt, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = [(getattr(e, 'device_time_total', None)
-             or getattr(e, 'cuda_time_total', 0), e.count, e.key)
-            for e in prof.key_averages()]
-    rows = [r for r in rows if r[0] > 0]
+    rows = device_rows(prof)
     busy = sum(r[0] for r in rows) / 1e6
     fused = sum(r[0] for r in rows if 'richtmyer_kernel' in r[2]) / 1e6
     res = dict(steps=nt, wall_s=wall, ms_per_step=1e3 * wall / nt,
@@ -1167,11 +1474,12 @@ def phase_sw_times(csl, pst, dev):
     return res
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, ops_per_s=F32_OPS_PER_S):
     """(ms, 'bytes' | 'operations'): the least time the card could take to
-    move ``nbytes`` and do ``ops`` f32 operations at its published peaks."""
+    move ``nbytes`` and do ``ops`` operations at its published peaks (f32
+    unless ``ops_per_s`` names another rate)."""
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_o = ops / F32_OPS_PER_S * 1e3
+    t_o = ops / ops_per_s * 1e3
     return (t_b, 'bytes') if t_b >= t_o else (t_o, 'operations')
 
 
@@ -1207,10 +1515,7 @@ def device_ms(fn, reps=20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    rows = [(getattr(e, 'device_time_total', None)
-             or getattr(e, 'cuda_time_total', 0), e.count)
-            for e in prof.key_averages()]
-    rows = [r for r in rows if r[0] > 0]
+    rows = device_rows(prof)
     if not rows:
         return None
     us = sum(r[0] for r in rows)
@@ -1236,18 +1541,20 @@ def timed_pair(kern, plain):
 
 def phase_times(cts, ts, ccv, pc, dev, probe):
     """Every kernel against its plain version, CUDA events (phase 5): K1 at
-    the single world's [99, 1] (where the main path launches it) and the
-    headline's [59, 4096], K3 at 4096 x 59 and at the convective ensemble's
-    512 x 149, K4 at 512 x 149 and at 4096 x 59, K7 on the probe's inputs
+    the single world's [99, 1] (where the main path launches it), the
+    headline's [59, 4096] and the EBM's [39, 64]; K3 at 4096 x 59, at the
+    convective ensemble's 512 x 149 and at the EBM ensemble's 64 x 39 in
+    f32 and f64; K4 at 512 x 149 and at 4096 x 59, K7 on the probe's inputs
     beside the PyTorch function of the same three quotients.  Each entry
     carries its bound: the larger of the bytes the function must move (each
     input read once, each output written once) over the card's memory rate
-    and its f32 operations (a division or an exp counted as one) over the
-    card's f32 rate."""
+    and its operations (a division or an exp counted as one) over the
+    card's rate for their dtype."""
     import torch
     gen = torch.Generator().manual_seed(5)
     res = {}
-    for n, b in (K1_MAIN, (59, HEADLINE['members'])):
+    ebm = (EBM['nz'] - 1, EBM['ny'])
+    for n, b in (K1_MAIN, (59, HEADLINE['members']), ebm):
         T, dtau, toa = walk_inputs(gen, n, b, torch.float32, dev)
         key = 'lw_walk' if (n, b) == K1_MAIN else f'lw_walk_{n}x{b}'
         res[key] = dict(timed_pair(
@@ -1256,18 +1563,24 @@ def phase_times(cts, ts, ccv, pc, dev, probe):
             # per level: T^2, T^4, sigma*, 2 exp, 2 x (mul, sub, mul, add)
             bound=bound(4 * (2 * n * b + b + 2 * (n + 1) * b), 13 * n * b))
     n, b = 59, HEADLINE['members']
-    for n_, b_ in ((n, b), (CONV['nz'] - 1, CONV['members'])):
-        args = stats_rows(gen, n_, b_, torch.float32, dev)
+    for n_, b_, dtype in ((n, b, torch.float32),
+                          (CONV['nz'] - 1, CONV['members'], torch.float32),
+                          ebm + (torch.float32,), ebm + (torch.float64,)):
+        args = stats_rows(gen, n_, b_, dtype, dev)
         L = ts.topk_depth(n_ + 1, 95)
-        key = 'net_stats_walk' if b_ == b else f'net_stats_walk_{n_}x{b_}'
+        key = ('net_stats_walk' if b_ == b else f'net_stats_walk_{n_}x{b_}'
+               + ('_f64' if dtype == torch.float64 else ''))
+        size, rate = ((8, F64_OPS_PER_S) if dtype == torch.float64 else
+                      (4, F32_OPS_PER_S))
         res[key] = dict(timed_pair(
             lambda: cts.net_stats_walk(*args, L),
             lambda: ts.net_stats_rows_plain(*args, L)), n=n_, b=b_, L=L,
+            dtype=str(dtype),
             # the walk, + per interface: the net (3), |net - prev| (2),
             # |net| and its max (2), a comparison with each of the L kept
-            bound=bound(4 * (2 * n_ * b_ + 3 * (n_ + 1) * b_ + b_
-                             + (n_ + 1) * b_ + 4 * b_),
-                        13 * n_ * b_ + (n_ + 1) * b_ * (7 + L)))
+            bound=bound(size * (2 * n_ * b_ + 3 * (n_ + 1) * b_ + b_
+                                + (n_ + 1) * b_ + 4 * b_),
+                        13 * n_ * b_ + (n_ + 1) * b_ * (7 + L), rate))
     gen = torch.Generator().manual_seed(6)
     for b_, n_ in ISO_SHAPES[:2]:
         theta, v = (x.to(dev) for x in iso_inputs(gen, b_, n_, torch.float32))
@@ -1316,6 +1629,7 @@ def main():
     from climatemodel_tpu_torch.constants import Omega, R_earth, \
         p_surface_earth
     from climatemodel_tpu_torch.models import ensemble as ens
+    from climatemodel_tpu_torch.models import ice_albedo as pice
     from climatemodel_tpu_torch.models import shallow_water as psw
     from climatemodel_tpu_torch.models.grey import GreyGas
     from climatemodel_tpu_torch.ops import convection as pc
@@ -1349,6 +1663,11 @@ def main():
     launches = main_res[5]
     conv_res, conv_state = phase_conv_main(ens, GreyGas, p_surface_earth,
                                            mods, dev)
+    more = [phase_ebm_main(ens, GreyGas, p_surface_earth, mods),
+            phase_ebm_sweep(pice, p_surface_earth, mods),
+            phase_march_options(GreyGas, p_surface_earth, mods)]
+    # each path's launches, its counts set to 0 before it and read after
+    launches = {k: launches[k] + sum(m[k] for m in more) for k in launches}
     k6_launches = phase_sw_main(psw, Omega, R_earth, csl, dev)
     k5_launches = phase_sw_step_path(psw, Omega, R_earth, csl, dev)
     phase_card_vs_cpu(ens, GreyGas, p_surface_earth, main_res, dev)
@@ -1359,6 +1678,7 @@ def main():
     times.update(phase_sw_times(csl, pst, dev))
     phase_sw_profile(psw, Omega, R_earth, dev)
     phase_conv_profile(ens, conv_state)
+    phase_ebm_profile(GreyGas, p_surface_earth)
 
     def entry(name, source, replaces, n_launch, err, t, library_ms=None):
         return {'name': name, 'route': 'cuda',

@@ -12,9 +12,10 @@ computes ``stop = eqb | failed | nan | timed_out | (i >= max_steps)`` and
 every update goes through ``torch.where(stop, old, new)``, so a stopped
 member is frozen exactly like a vmapped while-loop's select freezes it.
 
-Ported: the radiative(-convective) march with per-step checks.  Not yet
-ported (ROADMAP Queue 1): ``check_every > 1``, ``dip_memory``, ``debug``,
-``run_chunked_march`` and ``evolve_snapshots``.
+The march runs with per-step checks, with ``check_every`` steps a check
+(optionally with ``dip_memory``), under the host-side ``debug`` check, in
+host-driven chunks (:func:`run_chunked_march`) or stacking a snapshot a
+step (:func:`evolve_snapshots`).
 """
 from __future__ import annotations
 
@@ -260,11 +261,17 @@ def update_temp(state: ColumnState, net_flux, p_interface,
                 net_flux_thresh: float = 1e-7, net_flux_percentile: float = 95,
                 delta_stats=None, p_centre_col=None,
                 conv_thresh: float = 1e-5, conv_t_multiplier: float = 5.0,
-                conv_method: str = 'reference'):
+                conv_method: str = 'reference', changing_tau: bool = False,
+                compute_delta: bool = True):
     """One finite-volume temperature update with adaptive dt, per member.
 
     :param net_flux: [B, nz, ny] freshly computed net flux.
     :param p_interface: [nz, ny] interface pressures (shared by the batch).
+    :param changing_tau: the forcing changed since the last step: every
+        level updates and the delta statistic reads 1e6, as on the first
+        step (base.py:169-177).
+    :param compute_delta: False skips the delta statistic and returns None
+        for it (the reduced steps of a ``check_every`` march).
     :param delta_stats: optional (top1, top_hi, top_lo) [B] order statistics
         of ``|net_flux - state.net_flux|`` precomputed by the fused
         flux+stats operator (ops/two_stream.grey_net_with_stats).
@@ -286,17 +293,19 @@ def update_temp(state: ColumnState, net_flux, p_interface,
         p_interface[1:, :] - p_interface[:-1, :])
     tend_flat = T_tendency.reshape(B, -1)
 
-    first_or_forced = state.t <= 0
+    first_or_forced = (state.t <= 0) | bool(changing_tau)
     # stagnant levels (|net flux| small) and frozen levels stop updating
     # (base.py:169-177)
     active = torch.abs(net_flux[:, :-1, :].reshape(B, -1)) > net_flux_thresh
     allowed = first_or_forced[:, None] | (active & ~tsi.removed)
-    pctl = (_percentile_from_stats(*delta_stats, net_flux[0].numel(),
-                                   net_flux_percentile)
-            if delta_stats is not None else
-            _percentile_topk(torch.abs(net_flux - state.net_flux),
-                             net_flux_percentile))
-    delta_net_flux = torch.where(first_or_forced, 1e6, pctl.to(T.dtype))
+    delta_net_flux = None
+    if compute_delta:
+        pctl = (_percentile_from_stats(*delta_stats, net_flux[0].numel(),
+                                       net_flux_percentile)
+                if delta_stats is not None else
+                _percentile_topk(torch.abs(net_flux - state.net_flux),
+                                 net_flux_percentile))
+        delta_net_flux = torch.where(first_or_forced, 1e6, pctl.to(T.dtype))
 
     any_allowed = allowed.any(dim=1)
     tsi = where_members(any_allowed, update_time_step(tsi, tend_flat, allowed),
@@ -399,6 +408,167 @@ def march_step(st: ColumnState, ft, i, t0, net_flux_fn, p_interface, *,
     return (st, ft, delta) + flags
 
 
+class MarchDebugError(RuntimeError):
+    """Raised by a ``debug=True`` march: names the first non-finite net flux
+    interface, non-finite temperature level or negative temperature level,
+    with its step and simulated time."""
+
+
+class _DebugRecord:
+    """The first failure of each member of a ``debug`` march, recorded on
+    the device without a host sync.  ``kind`` is 0 (none), 1 (non-finite
+    net flux), 2 (non-finite temperature) or 3 (negative temperature): the
+    order in which the JAX package checks them (column.py:599-624), so the
+    first failing check of the first failing step is kept, as checkify
+    keeps it."""
+
+    _MESSAGES = {
+        1: 'march debug: non-finite net flux first at flat interface {lev} '
+           '(step {i}, t={t} s) — the radiation operator produced NaN/inf '
+           'from this state',
+        2: 'march debug: non-finite temperature first at flat level {lev} '
+           '(step {i}, t={t} s)',
+        3: 'march debug: temperature {tmin} K below zero first at flat level '
+           '{lev} (step {i}, t={t} s) — the reference aborts here too '
+           '(base.py:319-320)'}
+
+    def __init__(self, B, dtype, device):
+        self.kind = torch.zeros((B,), dtype=torch.int32, device=device)
+        self.lev = torch.zeros((B,), dtype=torch.int64, device=device)
+        self.step = torch.zeros((B,), dtype=torch.int32, device=device)
+        self.t = torch.zeros((B,), dtype=dtype, device=device)
+        self.tmin = torch.zeros((B,), dtype=dtype, device=device)
+
+    def update(self, st, go, step):
+        """Record the failures of the step that produced ``st`` (its net
+        flux is ``st.net_flux``) for the members in ``go`` that have none
+        yet; ``step`` [B] is the step count after it."""
+        B = st.T.shape[0]
+        bad_net = ~torch.isfinite(st.net_flux).reshape(B, -1)
+        T = st.T.reshape(B, -1)
+        bad_T = ~torch.isfinite(T)
+        tmin = torch.amin(T, dim=1)
+        kind = torch.where(bad_net.any(dim=1), 1, torch.where(
+            bad_T.any(dim=1), 2, torch.where(tmin < 0, 3, 0)))
+        # argmax takes the first index among equal maxima
+        lev = torch.where(kind == 1, bad_net.to(torch.uint8).argmax(dim=1),
+                          torch.where(kind == 2,
+                                      bad_T.to(torch.uint8).argmax(dim=1),
+                                      T.argmin(dim=1)))
+        new = go & (self.kind == 0) & (kind > 0)
+        self.kind = torch.where(new, kind.to(torch.int32), self.kind)
+        self.lev = torch.where(new, lev, self.lev)
+        self.step = torch.where(new, step, self.step)
+        self.t = torch.where(new, st.t, self.t)
+        self.tmin = torch.where(new, tmin, self.tmin)
+
+    def raise_first(self):
+        """Raise :class:`MarchDebugError` for the first member (by index)
+        that recorded a failure; return if none did."""
+        kind = self.kind.cpu()
+        failing = torch.nonzero(kind > 0)
+        if len(failing) == 0:
+            return
+        m = int(failing[0, 0])
+        msg = self._MESSAGES[int(kind[m])].format(
+            lev=int(self.lev[m]), i=int(self.step[m]), t=float(self.t[m]),
+            tmin=float(self.tmin[m]))
+        raise MarchDebugError(msg if kind.numel() == 1 else
+                              f'member {m}: {msg}')
+
+
+class _Lockstep:
+    """The carry of a lock-step march of B members: the state, exit
+    threshold, delta statistic and exit flags (``carry``) and the step
+    count ``i``.  A member is stopped once it converged, failed, went
+    non-finite, timed out or reached ``max_steps``; every step keeps the
+    members it is told to freeze exactly as they were, as a vmapped
+    while-loop's select keeps them."""
+
+    def __init__(self, state, net_flux_fn, p_interface, *, flux_thresh, i0,
+                 max_steps, t_end, net_flux_thresh, net_flux_percentile,
+                 use_delta_exit, net_stats_fn, conv_kw, debug=False):
+        B, dtype, device = state.T.shape[0], state.T.dtype, state.T.device
+
+        def per_member(v, dt):
+            return torch.broadcast_to(
+                torch.as_tensor(v, dtype=dt, device=device), (B,)).clone()
+
+        no = torch.zeros((B,), dtype=torch.bool, device=device)
+        self.no = no
+        self.carry = (state, per_member(flux_thresh, dtype),
+                      per_member(1e6, dtype), no, no, no, no)
+        self.i = per_member(i0, torch.int32)
+        self.t0 = state.t
+        self.max_steps = max_steps
+        self.net_flux_fn, self.p_interface = net_flux_fn, p_interface
+        self.net_stats_fn = net_stats_fn
+        # update_temp's keywords, and march_step's
+        self.update_kw = dict(net_flux_thresh=net_flux_thresh,
+                              net_flux_percentile=net_flux_percentile,
+                              **conv_kw)
+        self.step_kw = dict(t_end=t_end, use_delta_exit=use_delta_exit,
+                            net_stats_fn=net_stats_fn, **self.update_kw)
+        self.record = _DebugRecord(B, dtype, device) if debug else None
+
+    def stopped(self):
+        _st, _ft, _delta, eqb, failed, nan, tout = self.carry
+        return eqb | failed | nan | tout | (self.i >= self.max_steps)
+
+    def _full(self, st, i):
+        return march_step(st, self.carry[1], i, self.t0, self.net_flux_fn,
+                          self.p_interface, **self.step_kw)
+
+    def _keep(self, frozen, new, i_new):
+        self.carry = tuple(where_members(frozen, old, upd)
+                           for old, upd in zip(self.carry, new))
+        self.i = torch.where(frozen, self.i, i_new)
+
+    def step(self, frozen):
+        """One fully checked step (JAX column.py:578-633 with
+        ``check_every=1``)."""
+        new = self._full(self.carry[0], self.i)
+        if self.record is not None:
+            self.record.update(new[0], ~frozen, self.i + 1)
+        self._keep(frozen, new, self.i + 1)
+
+    def chunk(self, K, frozen):
+        """K - 1 reduced steps (physics and the dt controller, no delta
+        statistic), then one fully checked step; a negative or non-finite
+        value in a reduced step is kept and reported at the check
+        (JAX column.py:582-597)."""
+        st, i = self.carry[0], self.i
+        failed = nan = self.no
+        for _ in range(K - 1):
+            if self.net_stats_fn is not None:
+                net = self.net_stats_fn(st.T, st.net_flux)[0]
+            else:
+                net = self.net_flux_fn(st.T)
+            st, _ = update_temp(st, net, self.p_interface,
+                                compute_delta=False, **self.update_kw)
+            B = st.T.shape[0]
+            failed = failed | (torch.amin(st.T.reshape(B, -1), dim=1) < 0)
+            nan = nan | ~(torch.isfinite(st.T).reshape(B, -1).all(dim=1)
+                          & torch.isfinite(net).reshape(B, -1).all(dim=1))
+            i = i + 1
+        st, ft, delta, eqb, f_now, n_now, tout = self._full(st, i)
+        self._keep(frozen, (st, ft, delta, eqb, failed | f_now, nan | n_now,
+                            tout), i + 1)
+
+    def info(self):
+        st, ft, delta, eqb, failed, nan, tout = self.carry
+        return EquilibriumInfo(steps=self.i, delta_net_flux=delta,
+                               flux_thresh=ft, failed=failed, equilibrium=eqb,
+                               nan=nan, timed_out=tout)
+
+
+def _conv_kw(convective_adjust, p_centre_col, conv_thresh, conv_t_multiplier,
+             conv_method):
+    return (dict(convective_adjust=True, p_centre_col=p_centre_col,
+                 conv_thresh=conv_thresh, conv_t_multiplier=conv_t_multiplier,
+                 conv_method=conv_method) if convective_adjust else {})
+
+
 def evolve_to_equilibrium(state: ColumnState, net_flux_fn: Callable,
                           p_interface, p_centre_col=None, *,
                           flux_thresh=1e-3, convective_adjust: bool = False,
@@ -430,54 +600,175 @@ def evolve_to_equilibrium(state: ColumnState, net_flux_fn: Callable,
     :param i0: starting step count (float or [B]).
     :param final_reset: reset the time-step bookkeeping on exit
         (base.py:329-334).
+    :param check_every: K > 1 checks the exit every K steps (JAX
+        column.py:370-388): the first two steps are fully checked, so the
+        i == 1 tightening samples the same delta, then each chunk runs K - 1
+        reduced steps (physics and the dt controller, no delta statistic)
+        and one fully checked step.  A member stops at the first check that
+        sees a stop event, up to K - 1 steps past the per-step exit (and
+        past ``max_steps``); a negative or non-finite value in a reduced
+        step still stops it at that check.
+    :param dip_memory: with K > 1, every step of a chunk is fully checked
+        and a member freezes at its first stop event, the step cap
+        included, so the march is the per-step one bit for bit, only its
+        detection deferred (JAX column.py:389-404).  The loop here already
+        freezes each member at its own stop event and reads the stop flags
+        once every SYNC_EVERY iterations, so it runs that loop.
+    :param debug: check every step on the device for a non-finite net
+        flux, a non-finite temperature and a negative temperature, and
+        after the march raise :class:`MarchDebugError` naming the first
+        failure's flat index, step and simulated time (the JAX package's
+        checkify checks, column.py:405-415).  Per-step checks only; a
+        healthy debug march is bit-identical to a plain one.
     :param net_stats_fn: optional fused flux+statistics operator
         ``(T, prev_net) -> (net, top1, top_hi, top_lo, max|net|)``
         (ops/two_stream.grey_net_with_stats) replacing ``net_flux_fn`` and
         the in-march percentile/flux-balance reductions.
     :return: (final ColumnState, EquilibriumInfo)
     """
-    if check_every != 1 or dip_memory or debug:
-        raise NotImplementedError(
-            'check_every > 1, dip_memory and debug are not ported yet '
-            '(ROADMAP Queue 1)')
-    T = state.T
-    B, dtype, device = T.shape[0], T.dtype, T.device
-
-    def per_member(v, dt):
-        return torch.broadcast_to(
-            torch.as_tensor(v, dtype=dt, device=device), (B,)).clone()
-
-    t0 = state.t
-    st = state
-    ft = per_member(flux_thresh, dtype)
-    delta = per_member(1e6, dtype)
-    i = per_member(i0, torch.int32)
-    no = torch.zeros((B,), dtype=torch.bool, device=device)
-    eqb, failed, nan, tout = no, no, no, no
-    conv_kw = (dict(convective_adjust=True, p_centre_col=p_centre_col,
-                    conv_thresh=conv_thresh,
-                    conv_t_multiplier=conv_t_multiplier,
-                    conv_method=conv_method) if convective_adjust else {})
-
+    if debug and check_every > 1:
+        raise ValueError('debug=True needs per-step checks (check_every=1): '
+                         'the failing step/level is the whole point')
+    march = _Lockstep(state, net_flux_fn, p_interface, flux_thresh=flux_thresh,
+                      i0=i0, max_steps=max_steps, t_end=t_end,
+                      net_flux_thresh=net_flux_thresh,
+                      net_flux_percentile=net_flux_percentile,
+                      use_delta_exit=use_delta_exit, net_stats_fn=net_stats_fn,
+                      conv_kw=_conv_kw(convective_adjust, p_centre_col,
+                                       conv_thresh, conv_t_multiplier,
+                                       conv_method), debug=debug)
+    chunked = check_every > 1 and not dip_memory
+    if chunked:
+        # the fully checked two-step prefix (a no-op where i0 >= 2)
+        for _ in range(2):
+            march.step(march.stopped() | (march.i >= 2))
+    # one device->host sync every SYNC_EVERY steps; stopped members are
+    # frozen, so the iterations in between are no-ops for them
+    per_sync = max(1, SYNC_EVERY // check_every) if chunked else SYNC_EVERY
     it = 0
     while True:
-        stop = eqb | failed | nan | tout | (i >= max_steps)
-        # one device->host sync every SYNC_EVERY iterations; stopped members
-        # are frozen, so the iterations in between are no-ops for them
-        if it % SYNC_EVERY == 0 and bool(stop.all()):
+        stop = march.stopped()
+        if it % per_sync == 0 and bool(stop.all()):
             break
         it += 1
-        new = march_step(st, ft, i, t0, net_flux_fn, p_interface,
-                         t_end=t_end, net_flux_thresh=net_flux_thresh,
-                         net_flux_percentile=net_flux_percentile,
-                         use_delta_exit=use_delta_exit,
-                         net_stats_fn=net_stats_fn, **conv_kw)
-        st, ft, delta, eqb, failed, nan, tout = (
-            where_members(stop, old, upd) for old, upd in
-            zip((st, ft, delta, eqb, failed, nan, tout), new))
-        i = torch.where(stop, i, i + 1)
+        if chunked:
+            march.chunk(int(check_every), stop)
+        else:
+            march.step(stop)
+    if march.record is not None:
+        march.record.raise_first()
+    st = march.carry[0]
     if final_reset:
         st = st.replace(tsi=reset_time_step_info(st.tsi))
-    return st, EquilibriumInfo(steps=i, delta_net_flux=delta, flux_thresh=ft,
-                               failed=failed, equilibrium=eqb, nan=nan,
-                               timed_out=tout)
+    return st, march.info()
+
+
+def run_chunked_march(state: ColumnState, evolve: Callable, *, t_host_start,
+                      t_end, chunk_steps, flux_thresh, verbose=False):
+    """Drive the save=False march of a single world (a batch of one) in
+    chunks of ``chunk_steps`` steps, back on the host between chunks (JAX
+    column.py:637-678).
+
+    ``evolve(state, ft, i0=, t_end=, max_steps=)`` runs the march with
+    ``final_reset=False`` and returns ``(state, EquilibriumInfo)``.  Each
+    chunk gets what is left of the whole march's t_end budget and carries
+    the tightened threshold on; ``verbose`` prints the reference's
+    per-chunk line (base.py:324-327).  Returns ``(state, info)`` with the
+    controller reset (base.py:329-334).
+    """
+    i0 = 0
+    ft = flux_thresh
+    t_start = t_chunk_start = t_host_start
+    while True:
+        t_end_chunk = float(t_end) - (t_chunk_start - t_start) \
+            / SECONDS_PER_YEAR
+        state, info = evolve(state, ft, i0=i0, t_end=t_end_chunk,
+                             max_steps=i0 + int(chunk_steps))
+        i0 = int(info.steps[0])
+        ft = info.flux_thresh                # keep the tightened threshold
+        t_chunk_start = float(state.t[0])
+        if verbose:
+            print(f'step {i0}: t = {t_chunk_start / SECONDS_PER_YEAR:.3f} yr, '
+                  f'delta_net_flux = {float(info.delta_net_flux[0]):.4f}')
+        if bool((info.equilibrium | info.timed_out | info.failed
+                 | info.nan)[0]):
+            break
+    state = state.replace(tsi=reset_time_step_info(state.tsi))
+    return state, info
+
+
+def evolve_snapshots(state: ColumnState, net_flux_fn: Callable, p_interface,
+                     p_centre_col=None, *, n_snaps: int,
+                     steps_per_snap: int = 1,
+                     snapshot_fn: Callable | None = None,
+                     flux_thresh=1e-3, convective_adjust: bool = False,
+                     t_end: float = 4.0, conv_thresh: float = 1e-5,
+                     conv_t_multiplier: float = 5.0,
+                     net_flux_thresh: float = 1e-7,
+                     net_flux_percentile: float = 95,
+                     use_delta_exit: bool = True,
+                     conv_method: str = 'reference', i0=0,
+                     snapshot_on: str = 'pre'):
+    """March that stacks a snapshot every ``steps_per_snap`` steps, for
+    ``n_snaps`` snapshots (JAX column.py:680-758): the per-step march, each
+    member frozen at its stop event (there is no step cap but the
+    snapshots).  Once every member has stopped, the remaining snapshots
+    repeat the final state, as the JAX package's scan emits them; callers
+    truncate by the snapshots' ``steps``.
+
+    :param snapshot_fn: optional ``T -> tuple of tensors`` of extra
+        per-snapshot arrays (the grey model's four flux fields).
+    :param snapshot_on: 'pre' evaluates ``snapshot_fn`` on the temperature
+        before the snapshot's steps (the grey reference's save_data stores
+        the fluxes of a step's starting temperature, grey.py:296-383);
+        'post' on the temperature after them.
+    :return: (final state, EquilibriumInfo, snaps): snaps maps 't', 'T',
+        'delta', 'steps', 'equilibrium', 'failed', 'nan' and 'timed_out'
+        (and 'extra', a tuple, with ``snapshot_fn``) to tensors stacked
+        along a leading [n_snaps] axis before the member axis.
+    """
+    if snapshot_on not in ('pre', 'post'):
+        raise ValueError(f'snapshot_on must be pre or post, got '
+                         f'{snapshot_on!r}')
+    march = _Lockstep(state, net_flux_fn, p_interface, flux_thresh=flux_thresh,
+                      i0=i0, max_steps=torch.iinfo(torch.int32).max,
+                      t_end=t_end, net_flux_thresh=net_flux_thresh,
+                      net_flux_percentile=net_flux_percentile,
+                      use_delta_exit=use_delta_exit, net_stats_fn=None,
+                      conv_kw=_conv_kw(convective_adjust, p_centre_col,
+                                       conv_thresh, conv_t_multiplier,
+                                       conv_method))
+
+    def snap(extra):
+        st, _ft, delta, eqb, failed, nan, tout = march.carry
+        out = {'t': st.t, 'T': st.T, 'delta': delta, 'steps': march.i,
+               'equilibrium': eqb, 'failed': failed, 'nan': nan,
+               'timed_out': tout}
+        if extra is not None:
+            out['extra'] = tuple(extra)
+        return out
+
+    def extra_of(when):
+        if snapshot_fn is None or snapshot_on != when:
+            return None
+        return snapshot_fn(march.carry[0].T)
+
+    snaps = []
+    while len(snaps) < n_snaps:
+        if len(snaps) % SYNC_EVERY == 0 and bool(march.stopped().all()):
+            # the JAX scan's remaining iterations are no-ops
+            snaps += [snap(None if snapshot_fn is None else
+                           snapshot_fn(march.carry[0].T))] * (
+                n_snaps - len(snaps))
+            break
+        extra = extra_of('pre')
+        limit = march.i + steps_per_snap
+        for _ in range(steps_per_snap):
+            march.step(march.stopped() | (march.i >= limit))
+        snaps.append(snap(extra if extra is not None else extra_of('post')))
+    stacked = {k: torch.stack([s[k] for s in snaps])
+               for k in snaps[0] if k != 'extra'}
+    if 'extra' in snaps[0]:
+        stacked['extra'] = tuple(torch.stack(x) for x in
+                                 zip(*(s['extra'] for s in snaps)))
+    return march.carry[0], march.info(), stacked

@@ -7,8 +7,7 @@ an ensemble is a batch of B members that run lock-step until every member
 has stopped, each with its own adaptive dt, RemoveInd mask and simulated
 time.
 
-Not yet ported (ROADMAP Queue 1): ``grey_latitude_ensemble`` and the
-real-gas ensembles.
+Not yet ported (ROADMAP Queue 1): the real-gas ensembles.
 """
 from __future__ import annotations
 
@@ -18,7 +17,8 @@ import torch
 from ..constants import sigma
 from . import column
 from .column import ColumnState, where_members
-from .grey import GreyForcing, GreyGas, grey_net_flux, grey_sw_fluxes, up_flux_toa
+from .grey import (GreyForcing, GreyGas, grey_net_flux_fn, grey_sw_fluxes,
+                   up_flux_toa)
 
 
 def broadcast_state(state: ColumnState, n: int) -> ColumnState:
@@ -66,8 +66,7 @@ def grey_march_fns(forcings: GreyForcing, net_shape, fused_stats=True,
     on CUDA) and the statistics separately."""
     from ..ops.two_stream import grey_net_with_stats
 
-    def net_fn(T):
-        return grey_net_flux(T, forcings)
+    net_fn = grey_net_flux_fn(forcings)
     if not fused_stats:
         return net_fn, None
     up_toa = up_flux_toa(forcings)
@@ -201,3 +200,40 @@ def grey_finish_unconverged_f64(fs: ColumnState, info, forcings: GreyForcing,
         timed_out=scatter(info.timed_out,
                           info64.timed_out & ~info64.equilibrium))
     return fs_out, info_out, bad_np
+
+
+def grey_latitude_ensemble(world: GreyGas):
+    """Split a latitude-grid world into ny independent single-column
+    members, each with its own adaptive-dt controller (JAX
+    models/ensemble.py:239-276).
+
+    The reference shares one dt across all latitudes (base.py:197-246),
+    which drags convergence to the slowest column; latitudes never couple
+    in this model, so marching them as an ensemble converges each on its
+    own clock.
+
+    :return: (states, forcings, p_interface [nz, 1], p_centre [nz-1]) with
+        a leading ny axis, as :func:`grey_evolve_ensemble` and
+        :func:`grey_finish_unconverged_f64` take them; the world's
+        temperature field is ``states.T[:, :, 0].T``.
+    """
+    ny, n_lev = world.ny, world.nz - 1
+    base = world.forcing
+
+    def col(x):                             # [1, ..., ny] -> [ny, ..., 1]
+        return x[0].movedim(-1, 0)[..., None].contiguous()
+
+    forcings = GreyForcing(
+        dtau=col(base.dtau), tau_sw_interface=col(base.tau_sw_interface),
+        albedo_mod=base.albedo_mod[0][:, None].contiguous(),
+        solar_latitude_factor=base.solar_latitude_factor[0][:, None]
+        .contiguous(),
+        F_stellar=base.F_stellar.expand(ny).clone())
+    st = world.state
+    tsi = st.tsi.map(lambda x: (x.expand(ny).clone() if x.ndim == 1 else
+                                x[0].reshape(n_lev, ny).T.contiguous()))
+    states = ColumnState(T=col(st.T), net_flux=col(st.net_flux),
+                         t=st.t.expand(ny).clone(), tsi=tsi)
+    p_int = world._tensor(world.p_interface[:, :1])
+    p_c = world._tensor(world.p[:, 0])
+    return states, forcings, p_int, p_c

@@ -8,13 +8,11 @@ of one for a single world, so ``GreyGas`` and the ensemble march share
 ``column.evolve_to_equilibrium``.  Array orientation matches the reference
 grey model: level index 0 = surface, nz-1 = top of atmosphere.
 
-Ported: the constructor, grids and ``update_grid``, the forcing, the state
-views, ``evolve_to_equilibrium(save=False)`` with or without convective
-adjustment, ``equilibrium_sol`` and the closed-form
-:class:`GreySwEquilibrium`.  Not yet ported (ROADMAP Queue 1): ``save=True``
-and snapshots, ``take_time_step``, ``bake_forcing``, ``chunk_steps``,
-``debug``, ``check_every``/``dip_memory`` and ``plot_eqb``; each raises
-``NotImplementedError``.
+Everything but ``plot_eqb`` (host plots, ROADMAP Queue 1) is ported: the
+constructor, grids and ``update_grid``, the forcing, the state views,
+``take_time_step``, ``save_data``, ``evolve_to_equilibrium`` with its
+snapshot march (``save=True``), chunks, exit cadences and debug checks,
+``equilibrium_sol`` and the closed-form :class:`GreySwEquilibrium`.
 """
 from __future__ import annotations
 
@@ -25,7 +23,8 @@ import warnings
 import numpy as np
 import torch
 
-from ..constants import F_sun, p_surface_earth, p_toa_earth, sigma
+from ..constants import (F_sun, SECONDS_PER_YEAR, p_surface_earth,
+                         p_toa_earth, sigma)
 from ..ops import optical_depth as od
 from ..ops.convection import convective_adjustment
 from ..ops.two_stream import lw_flux, sw_flux
@@ -67,11 +66,25 @@ def grey_fluxes(T, forcing: GreyForcing):
     return up_lw.movedim(1, 0), down_lw.movedim(1, 0), up_sw, down_sw
 
 
+def grey_net_flux_fn(forcing: GreyForcing):
+    """The net upward flux at every interface, up_lw - down_lw + up_sw -
+    down_sw (grey.py:296-300), as a function of the cell temperatures
+    [B, nz-1, ny] alone: the T-independent sw fluxes and TOA boundary are
+    computed once, for every step of a march."""
+    up_toa = up_flux_toa(forcing)
+    up_sw, down_sw = grey_sw_fluxes(forcing)
+
+    def net_fn(T):
+        up_lw, down_lw = lw_flux(T.movedim(0, 1), forcing.dtau.movedim(0, 1),
+                                 up_toa, surface_first=True)
+        return up_lw.movedim(1, 0) - down_lw.movedim(1, 0) + up_sw - down_sw
+    return net_fn
+
+
 def grey_net_flux(T, forcing: GreyForcing):
-    """Net upward flux at every interface, up_lw - down_lw + up_sw -
-    down_sw (grey.py:296-300)."""
-    up_lw, down_lw, up_sw, down_sw = grey_fluxes(T, forcing)
-    return up_lw - down_lw + up_sw - down_sw
+    """Net upward flux at every interface (:func:`grey_net_flux_fn` of one
+    temperature field)."""
+    return grey_net_flux_fn(forcing)(T)
 
 
 def _not_ported(what):
@@ -257,8 +270,43 @@ class GreyGas:
 
     # ---------------- stepping ----------------
 
-    def take_time_step(self, *args, **kwargs):
-        raise _not_ported('GreyGas.take_time_step')
+    def _march_inputs(self, forcing):
+        """(net flux function, p_interface, p_centre column) of a march."""
+        return (grey_net_flux_fn(forcing), self._tensor(self.p_interface),
+                self._tensor(self.p[:, 0]))
+
+    def take_time_step(self, t, T_initial=None, changing_tau=False,
+                       convective_adjust=False, net_flux_thresh=1e-7,
+                       net_flux_percentile=95, conv_thresh=1e-5,
+                       conv_t_multiplier=5, return_dt=False):
+        """One time step (grey.py:296-344): the fluxes of the current
+        temperature, then the temperature update.  The flux views keep the
+        step's starting fluxes, as the reference's do.  Returns (t,
+        delta_net_flux), or (t, delta_net_flux, dt) with ``return_dt``."""
+        if changing_tau:
+            self.update_grid()
+        if t == 0 and T_initial is not None:
+            self.T = T_initial
+        self._state = self._state.replace(
+            t=torch.full((1,), float(t), dtype=self.dtype, device=self.device))
+        forcing = self.forcing
+        fluxes = grey_fluxes(self._state.T, forcing)
+        up_lw, down_lw, up_sw, down_sw = fluxes
+        conv_kw = (dict(convective_adjust=True,
+                        p_centre_col=self._tensor(self.p[:, 0]),
+                        conv_thresh=conv_thresh,
+                        conv_t_multiplier=conv_t_multiplier)
+                   if convective_adjust else {})
+        self._state, delta = column.update_temp(
+            self._state, up_lw - down_lw + up_sw - down_sw,
+            self._tensor(self.p_interface), changing_tau=changing_tau,
+            net_flux_thresh=net_flux_thresh,
+            net_flux_percentile=net_flux_percentile, **conv_kw)
+        self._fluxes = fluxes
+        out = (float(self._state.t[0]), float(delta[0]))
+        if return_dt:
+            return out + (float(self._state.tsi.dt.max()),)
+        return out
 
     def evolve_to_equilibrium(self, data_dict=None, flux_thresh=1e-3,
                               T_initial=None, convective_adjust=False, save=True,
@@ -267,8 +315,13 @@ class GreyGas:
                               chunk_steps=None, check_every=1,
                               dip_memory=False, debug=False,
                               bake_forcing=False) -> dict:
-        """March to equilibrium (base.py:266-335), ``save=False`` only.
+        """March to equilibrium (base.py:266-335).
 
+        ``save=False`` runs the lock-step march; ``save=True`` runs the
+        snapshot march in chunks of ``chunk_steps`` (256 by default) steps
+        and appends every step's time and temperature (and the lagged
+        fluxes and the tau grids where ``data_dict`` holds 'flux' and
+        'tau') to ``data_dict``, as the reference's save_data does.
         data_dict=None restarts the clock (base.py:301-306), so every fresh
         call gets the t=0 forced first step.  Raises like the JAX package on
         a non-finite value, a negative temperature, or the step cap.
@@ -278,14 +331,26 @@ class GreyGas:
             'reference' (faithful group blend) or 'isotonic' (the iso_fit
             kernel on the card); ``conv_thresh`` and ``conv_t_multiplier``
             as in ``column.update_temp``.
+        :param chunk_steps: with ``save=False``, return to the host every
+            this many steps (``verbose`` alone makes it 1000 and prints a
+            line a chunk); with ``check_every`` a chunk may run up to
+            ``check_every - 1`` steps past its end.
+        :param check_every, dip_memory: the exit cadence of the save=False
+            march (``column.evolve_to_equilibrium``).
+        :param debug: the save=False per-step march with the host-side
+            checks of ``column.evolve_to_equilibrium``: a failure raises
+            ``column.MarchDebugError`` naming where it first appeared.
+        :param bake_forcing: accepted for the JAX package's interface, where
+            it compiles the march with the forcing as constants.  Here
+            there is no compile to bake into: the march always takes the
+            forcing as tensors made once a call, with its T-independent sw
+            fluxes computed once, so the flag changes nothing and keeps no
+            cache.
         """
-        if save:
-            raise _not_ported('evolve_to_equilibrium(save=True) (snapshots)')
-        for flag, what in ((chunk_steps is not None, 'chunk_steps'),
-                           (bake_forcing, 'bake_forcing'), (debug, 'debug'),
-                           (verbose, 'verbose')):
-            if flag:
-                raise _not_ported(what)
+        del bake_forcing
+        if debug and (save or check_every != 1 or dip_memory):
+            raise ValueError('debug=True supports the save=False per-step '
+                             'march only (check_every=1, dip_memory=False)')
         t_host = 0.0 if data_dict is None else float(data_dict['t'][-1])
         self._state = self._state.replace(
             t=torch.full((1,), t_host, dtype=self.dtype, device=self.device))
@@ -294,31 +359,132 @@ class GreyGas:
         if data_dict is None:
             data_dict = {'t': [t_host], 'T': [self.T]}
         forcing = self.forcing
-        p_int = self._tensor(self.p_interface)
-        p_c = self._tensor(self.p[:, 0])
-        self._state, info = column.evolve_to_equilibrium(
-            self._state, lambda T: grey_net_flux(T, forcing), p_int, p_c,
-            flux_thresh=flux_thresh, convective_adjust=convective_adjust,
-            t_end=float(t_end), conv_thresh=conv_thresh,
-            conv_t_multiplier=conv_t_multiplier, conv_method=conv_method,
-            check_every=check_every, dip_memory=dip_memory)
+        net_fn, p_int, p_c = self._march_inputs(forcing)
+        march_kw = dict(convective_adjust=convective_adjust,
+                        conv_thresh=conv_thresh,
+                        conv_t_multiplier=conv_t_multiplier,
+                        conv_method=conv_method)
+        if save:
+            return self._evolve_saving(data_dict, forcing, net_fn, p_int, p_c,
+                                       flux_thresh, t_end, chunk_steps,
+                                       verbose, march_kw)
+
+        def march(state, ft, **kw):
+            return column.evolve_to_equilibrium(
+                state, net_fn, p_int, p_c, flux_thresh=ft,
+                check_every=int(check_every), dip_memory=bool(dip_memory),
+                debug=debug, **march_kw, **kw)
+        if verbose and chunk_steps is None:
+            chunk_steps = 1000
+        if chunk_steps is None:
+            self._state, info = march(self._state, flux_thresh,
+                                      t_end=float(t_end))
+        else:
+            def chunk_evolve(state, ft, *, i0, t_end, max_steps):
+                return march(state, ft, t_end=t_end, i0=i0,
+                             max_steps=max_steps, final_reset=False)
+            self._state, info = column.run_chunked_march(
+                self._state, chunk_evolve, t_host_start=data_dict['t'][-1],
+                t_end=t_end, chunk_steps=chunk_steps, flux_thresh=flux_thresh,
+                verbose=verbose)
         # flux views at the equilibrium temperature
         self._fluxes = grey_fluxes(self._state.T, forcing)
         self._equilibrium_info = column.EquilibriumInfo(
             *(x[0].cpu().numpy() for x in info))
         eq = self._equilibrium_info
+        self._raise_on_abort(eq)
+        if not bool(eq.equilibrium) and not bool(eq.timed_out):
+            raise RuntimeError(
+                'march hit the max_steps safety cap without converging '
+                'or reaching t_end — use chunk_steps, raise t_end, or '
+                'loosen flux_thresh')
+        data_dict['t'].append(float(self._state.t[0]))
+        data_dict['T'].append(self.T)
+        return data_dict
+
+    @staticmethod
+    def _raise_on_abort(eq):
         if bool(eq.nan):
             raise FloatingPointError(
                 'non-finite temperature or flux encountered during the '
                 'march (NaN sentinel) — check forcing inputs')
         if bool(eq.failed):
             raise ValueError('Temperature is below zero')
-        if not bool(eq.equilibrium) and not bool(eq.timed_out):
-            raise RuntimeError(
-                'march hit the max_steps safety cap without converging '
-                'or reaching t_end — raise t_end or loosen flux_thresh')
-        data_dict['t'].append(float(self._state.t[0]))
-        data_dict['T'].append(self.T)
+
+    def _evolve_saving(self, data_dict, forcing, net_fn, p_int, p_c,
+                       flux_thresh, t_end, chunk_steps, verbose, march_kw):
+        """The save=True march (JAX grey.py:492-567): chunks of per-step
+        snapshots, one host copy a chunk, appended step by step; the
+        fluxes stored with a step are those of its starting temperature
+        (the reference's save_data lag)."""
+        with_fluxes = 'flux' in data_dict
+        with_tau = 'tau' in data_dict
+        snap_fn = (lambda T: grey_fluxes(T, forcing)) if with_fluxes else None
+        chunk = int(chunk_steps) if chunk_steps else 256
+        i0 = 0
+        ft = flux_thresh
+        t_start = t_chunk_start = data_dict['t'][-1]
+        flux_keys = ('lw_up', 'lw_down', 'sw_up', 'sw_down')
+        while True:
+            # t_end is a whole-march budget: each chunk gets the remainder
+            t_end_chunk = float(t_end) - (t_chunk_start - t_start) \
+                / SECONDS_PER_YEAR
+            self._state, info, snaps = column.evolve_snapshots(
+                self._state, net_fn, p_int, p_c, n_snaps=chunk,
+                snapshot_fn=snap_fn, flux_thresh=ft, t_end=t_end_chunk,
+                i0=i0, **march_kw)
+            host = {k: (tuple(x[:, 0].cpu().numpy() for x in v)
+                        if k == 'extra' else v[:, 0].cpu().numpy())
+                    for k, v in snaps.items()}
+            prev = i0
+            for k in range(chunk):
+                if host['steps'][k] <= prev:
+                    break                         # march ended mid-chunk
+                prev = int(host['steps'][k])
+                t_k = float(host['t'][k])
+                data_dict['t'].append(t_k)
+                data_dict['T'].append(host['T'][k])
+                if with_tau:
+                    data_dict['tau']['lw'].append(self.tau.copy())
+                    data_dict['tau']['sw'].append(self.tau_sw.copy())
+                if with_fluxes:
+                    for key, fx in zip(flux_keys, host['extra']):
+                        data_dict['flux'][key].append(fx[k])
+                if verbose:
+                    print(f't = {t_k / SECONDS_PER_YEAR:.3f} yr, '
+                          f'delta_net_flux = {float(host["delta"][k]):.4f}',
+                          end='\r')
+            eq = column.EquilibriumInfo(*(x[0].cpu().numpy() for x in info))
+            i0 = int(eq.steps)
+            ft = info.flux_thresh                # keep the tightened threshold
+            t_chunk_start = data_dict['t'][-1]
+            self._raise_on_abort(eq)
+            if bool(eq.equilibrium) or bool(eq.timed_out):
+                break
+        # with fluxes: the lagged views of the last step, as the reference
+        # holds them; otherwise the fluxes of the final temperature
+        if with_fluxes:
+            self._fluxes = tuple(self._tensor(data_dict['flux'][key][-1])[None]
+                                 for key in flux_keys)
+        else:
+            self._fluxes = grey_fluxes(self._state.T, forcing)
+        self._equilibrium_info = eq
+        self._state = self._state.replace(
+            tsi=column.reset_time_step_info(self._state.tsi))
+        return data_dict
+
+    def save_data(self, data_dict, t):
+        """Append snapshot arrays (grey.py:360-383)."""
+        data_dict['t'].append(t)
+        data_dict['T'].append(self.T.copy())
+        if 'tau' in data_dict:
+            data_dict['tau']['lw'].append(self.tau.copy())
+            data_dict['tau']['sw'].append(self.tau_sw.copy())
+        if 'flux' in data_dict:
+            data_dict['flux']['lw_up'].append(self.up_lw_flux)
+            data_dict['flux']['lw_down'].append(self.down_lw_flux)
+            data_dict['flux']['sw_up'].append(self.up_sw_flux)
+            data_dict['flux']['sw_down'].append(self.down_sw_flux)
         return data_dict
 
     # ---------------- analytic equilibrium oracles (grey.py:385-451) ----------

@@ -30,7 +30,8 @@ def test_port_imports_with_jax_blocked():
             'climatemodel_tpu_torch.ops.cuda_convection',
             'climatemodel_tpu_torch.ops.stencils',
             'climatemodel_tpu_torch.ops.cuda_stencils',
-            'climatemodel_tpu_torch.models.shallow_water'} <= set(MODULES)
+            'climatemodel_tpu_torch.models.shallow_water',
+            'climatemodel_tpu_torch.models.ice_albedo'} <= set(MODULES)
 
 
 def test_port_sources_never_import_jax():
