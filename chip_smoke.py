@@ -9,7 +9,12 @@ single thermosphere world, both adjustment methods), the ice-albedo EBM
 (bench_ebm's latitude world with one dt shared by its latitudes and as an
 ensemble of single columns, and a stellar hysteresis sweep, checked
 against the same sweep on the CPU), the march options (check_every,
-dip_memory, bake_forcing, save=True) and the shallow-water
+dip_memory, bake_forcing, save=True), the real-gas band column (the four
+earth tables built from the shipped line fixtures; bench.py's real-gas rows:
+the 4-gas earth column at nz='auto' with 200 bands, with check_every=4, the
+single-line column, the 64-member insolation ensemble, the nz=400 column
+with its f32 and bf16 caches, and the convective single-line column with
+each adjustment method) and the shallow-water
 engine (bench_sw's El Nino world at 2050 x 1026 through the fused Richtmyer
 kernel, and ``ShallowWater.time_step`` through its interior mode), checks
 the card against the CPU, profiles the marches and the shallow-water run,
@@ -82,6 +87,31 @@ SWEEP_T_BOUND_K = 1.5
 # bench_grey_single_column (bench.py:377-405): the thermosphere world at
 # nz=150, radiative, flux_thresh 1e-3; and bench_rce_conv's (bench.py:426)
 MARCH_OPTIONS = dict(nz=150, flux_thresh=1e-3, conv_t_end=30.0)
+
+
+# the real-gas rows of bench.py (bench_real_gas :200, bench_real_gas_earth
+# :229, bench_real_gas_earth_ensemble :285, bench_real_gas_hires :330), f32:
+# the 4-gas earth column with 200 bands (nz='auto' gives 121 levels)
+RG_EARTH = dict(molecule_names=['CO2', 'CH4', 'H2O', 'O3'], T_g=265.19,
+                p_toa=0.1, n_nu_bands=200, temp_change=1,
+                delta_temp_change=0.1)
+RG_MAIN = dict(nz_expected=121, flux_thresh=1e-3, t_end=20.0, check_every=4)
+RG_SINGLE = dict(T_g=265.0, delta_temp_change=0.1, flux_thresh=1e-4)
+RG_ENSEMBLE = dict(members=64, F=(0.85, 1.15), temp_change=0.5,
+                   max_steps=5000, t_end=20.0, flux_thresh=1e-3)
+RG_HIRES = dict(nz=400, max_steps=500, t_end=2.0, flux_thresh=1e-3)
+# card vs CPU from a shared carry: steps of the earth column, and the bound
+# a step on the optically active cells (tau > 0.03 at some wavenumber: the
+# thin TOA cells carry a tendency that is f32 rounding noise,
+# tests/test_torch_real_gas.py)
+RG_CARD_CPU = dict(steps=20, bound_K=1e-3)
+# the convective single-line marches: at most this many steps held step by
+# step card vs CPU
+RG_CONV = dict(lockstep_steps=200)
+# steps of the profiled earth march: the profiler's post-processing takes
+# ~40 ms per step's ~200 events, so the march is cut here (its steps all
+# do the same work)
+RG_PROFILE_STEPS = 300
 
 
 def thermosphere_kwargs(p_surface_earth):
@@ -1071,6 +1101,339 @@ def phase_march_options(GreyGas, p_surface_earth, mods):
     return launches
 
 
+def earth_gas(prg, nz, **kw):
+    """bench_real_gas_earth's column (bench.py:229), built without naming a
+    device (the card), f32."""
+    return prg.RealGas(nz=nz, ny=1, **{**RG_EARTH, **kw})
+
+
+def single_line_gas(prg, phum, **kw):
+    """bench_real_gas's single-line column (bench.py:200), f32."""
+    return prg.RealGas(nz='auto', ny=1, molecule_names=['single_line'],
+                       T_g=RG_SINGLE['T_g'],
+                       q_funcs={'single_line': phum.co2},
+                       q_funcs_args={'single_line': ()},
+                       delta_temp_change=RG_SINGLE['delta_temp_change'], **kw)
+
+
+def march_row(gas, state0, runs=1, **kw):
+    """March ``gas`` from ``state0`` with evolve_to_equilibrium ``runs``
+    times (the first a warm run when runs > 1): the best wall and its
+    row."""
+    import torch
+    wall = float('inf')
+    for _ in range(runs):
+        gas._state = state0
+        t0 = time.perf_counter()
+        gas.evolve_to_equilibrium(**kw)
+        torch.cuda.synchronize()
+        wall = min(wall, time.perf_counter() - t0)
+    eq = gas._equilibrium_info
+    steps = int(eq.steps)
+    return dict(steps=steps, wall_s=wall, ms_per_step=1e3 * wall / steps,
+                model_days_per_sec=float(gas.state.t[0]) / 86400.0 / wall,
+                equilibrium=bool(eq.equilibrium),
+                timed_out=bool(eq.timed_out), failed=bool(eq.failed),
+                nan=bool(eq.nan))
+
+
+def phase_rg_tables(pet, ph):
+    """The four earth tables built by the port from the shipped line
+    fixtures into its own folder (phase 3f): the build wall, the shapes
+    [200, 6, n_nu], and a second call that builds nothing."""
+    folder = ph.lookup_table_folder()
+    fresh = not os.path.isfile(os.path.join(folder,
+                                            '_earth_fixture_stamp.json'))
+    t0 = time.perf_counter()
+    out, built = pet.ensure_earth_tables()
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, built2 = pet.ensure_earth_tables()
+    wall2 = time.perf_counter() - t0
+    shapes = {n: list(ph.load_table(n, out)['absorption_coef'].shape)
+              for n in RG_EARTH['molecule_names']}
+    emit('rg_tables', folder=out, fresh_folder=fresh, built=built,
+         build_wall_s=wall, second_call_built=built2,
+         second_call_wall_s=wall2, shapes=shapes,
+         fixture_folder=pet.fixture_folder())
+    check(not fresh or sorted(built) == sorted(RG_EARTH['molecule_names']),
+          f'the earth tables were not all built: {built}')
+    check(built2 == [], f'a second ensure_earth_tables built {built2}')
+    check(all(s[:2] == [200, 6] for s in shapes.values()),
+          f'earth table shapes {shapes}')
+
+
+def phase_rg_main(prg, phum, mods):
+    """bench_real_gas_earth on the card (phase 3g): the 4-gas column at
+    nz='auto' with 200 bands marched by evolve_to_equilibrium from its
+    initial state, per step and with check_every=4, each best of 3 after a
+    warm march; then bench_real_gas's single-line column.  Returns (the
+    earth world, its initial state)."""
+    import torch
+    check(torch.backends.cuda.matmul.allow_tf32 is False,
+          'f32 matmuls would run in TF32')
+    check(torch.get_float32_matmul_precision() == 'highest',
+          'f32 matmul precision is not highest')
+    t0 = time.perf_counter()
+    gas = earth_gas(prg, 'auto')
+    build_s = time.perf_counter() - t0
+    check(gas.device.type == 'cuda', 'RealGas did not default to the card')
+    state0 = gas.state
+    ft, t_end = RG_MAIN['flux_thresh'], RG_MAIN['t_end']
+    reset_counts(mods)
+    res = dict(nz=gas.nz, n_nu=int(gas.nu.size),
+               n_lw_bands=int(gas._packed.lw_list.size),
+               packed=list(gas._packed.idx.shape), host_build_s=build_s)
+    res['per_step'] = march_row(gas, state0, runs=4, flux_thresh=ft,
+                                t_end=t_end)
+    res['check_every_4'] = march_row(gas, state0, runs=4, flux_thresh=ft,
+                                     t_end=t_end,
+                                     check_every=RG_MAIN['check_every'])
+    single = single_line_gas(prg, phum)
+    res['single_line'] = dict(nz=single.nz, **march_row(
+        single, single.state, runs=4, flux_thresh=RG_SINGLE['flux_thresh']))
+    launches = read_counts(mods)
+    res['launches'] = launches
+    emit('rg_main', **res)
+    check(gas.nz == RG_MAIN['nz_expected'],
+          f'earth column nz {gas.nz}, expected {RG_MAIN["nz_expected"]}')
+    for key in ('per_step', 'check_every_4'):
+        check(res[key]['equilibrium'], f'earth column ({key}) did not reach '
+              'equilibrium')
+    for key in ('per_step', 'check_every_4', 'single_line'):
+        check(not res[key]['failed'] and not res[key]['nan'],
+              f'real-gas march {key} failed or went non-finite')
+    gas._state = state0
+    return gas, state0
+
+
+def phase_rg_ensemble(prg, pens, mods):
+    """bench_real_gas_earth_ensemble on the card (phase 3h): 64 members of
+    the earth column (temp_change 0.5) sweeping the insolation scale over
+    one shared composition, a warm run then a timed one; every member must
+    converge (the JAX record's converged_fraction 1.0, bench.py:294-300)."""
+    import numpy as np
+    import torch
+    gas = earth_gas(prg, 'auto', temp_change=RG_ENSEMBLE['temp_change'])
+    scales = np.linspace(*RG_ENSEMBLE['F'], RG_ENSEMBLE['members'])
+    states, sc, T_gs, args = pens.real_gas_ensemble(gas, F_scales=scales)
+    reset_counts(mods)
+    for _ in range(2):
+        t0 = time.perf_counter()
+        fs, info = pens.real_gas_evolve_ensemble(
+            states, sc, T_gs, *args, RG_ENSEMBLE['flux_thresh'],
+            t_end=RG_ENSEMBLE['t_end'], max_steps=RG_ENSEMBLE['max_steps'])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    eqb = info.equilibrium.cpu().numpy()
+    steps = int(info.steps.sum())
+    res = dict(members=len(scales), nz=gas.nz, wall_s=wall,
+               total_steps=steps, lockstep_iterations=int(info.steps.max()),
+               member_steps_per_sec=steps / wall,
+               model_days_per_sec=float(fs.t.double().sum()) / 86400.0
+               / wall, converged_fraction=float(eqb.mean()),
+               unconverged_scales=[float(x) for x in scales[~eqb]],
+               failed_members=int(info.failed.sum()),
+               nan_members=int(info.nan.sum()), launches=read_counts(mods))
+    emit('rg_ensemble', **res)
+    check(res['converged_fraction'] == 1.0,
+          f'real-gas ensemble converged {res["converged_fraction"]}')
+    check(bool(torch.isfinite(fs.T).all()), 'non-finite ensemble T')
+
+
+def phase_rg_hires(prg):
+    """bench_real_gas_hires on the card (phase 3i): the earth column at
+    nz=400 with 200 bands, 500 steps from its initial state with the f32
+    cache and with the bf16 cache (its row-differenced layout), a warm run
+    then a timed one each; neither may fail.  Prints the bytes of the f32
+    march operator M_sum and of the bf16 one D_sum."""
+    import torch
+    t0 = time.perf_counter()
+    gas = earth_gas(prg, RG_HIRES['nz'])
+    build_s = time.perf_counter() - t0
+    res = dict(nz=gas.nz, n_lw_bands=int(gas._packed.lw_list.size),
+               host_build_s=build_s)
+    for key, cd in (('f32', None), ('bf16_cache', torch.bfloat16)):
+        t0 = time.perf_counter()
+        cache = prg.precompute_transmission(gas.tau_device, gas.band_arrays,
+                                            cd)
+        torch.cuda.synchronize()
+        fold_s = time.perf_counter() - t0
+        for _ in range(2):
+            t0 = time.perf_counter()
+            st, info = prg._real_gas_evolve(
+                gas.state, *gas._march_args(), RG_HIRES['flux_thresh'],
+                t_end=RG_HIRES['t_end'], max_steps=RG_HIRES['max_steps'],
+                cache=cache)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        steps = int(info.steps[0])
+        op = cache.M_sum if cd is None else cache.D_sum
+        res[key] = dict(steps=steps, wall_s=wall,
+                        ms_per_step=1e3 * wall / steps, fold_s=fold_s,
+                        operator_bytes=op.numel() * op.element_size(),
+                        failed=bool(info.failed[0]), nan=bool(info.nan[0]),
+                        finite=bool(torch.isfinite(st.T).all()))
+    emit('rg_hires', **res)
+    for key in ('f32', 'bf16_cache'):
+        check(not res[key]['failed'] and not res[key]['nan']
+              and res[key]['finite'], f'hires march ({key}) failed')
+
+
+def rg_lockstep_card_vs_cpu(prg, pcol, gas, state, steps, t_end, ft,
+                            conv_kw=None):
+    """March ``gas`` from ``state`` on the card one step at a time; before
+    every step the CPU takes the same carry and the card's operators.
+    Returns the largest per-step |T card - T CPU| on the active cells and
+    on all cells, the member-steps whose exit flags differ, the (step,
+    level) convective flags that differ, and the steps run."""
+    import numpy as np
+    import torch
+    T_g, tau, ba, F, delta, p_int, p_c = gas._march_args()
+    cache = gas.transmission()
+    cpu = lambda x: x.cpu()  # noqa: E731
+    fn = prg.real_gas_net_fn(T_g, cache, ba, F, delta)
+    fn_c = prg.real_gas_net_fn(T_g.cpu(), cache.map(cpu), ba.map(cpu),
+                               F.cpu(), delta.cpu())
+    conv_kw = dict(conv_kw or {})
+    conv_c = dict(conv_kw)
+    if conv_kw:
+        conv_kw['p_centre_col'], conv_c['p_centre_col'] = p_c, p_c.cpu()
+    act = torch.from_numpy(np.asarray(gas.tau_interface).max(axis=1)[1:]
+                           > 0.03)
+    st = state
+    ft = torch.full((1,), ft, dtype=st.T.dtype, device=st.T.device)
+    i = torch.zeros((1,), dtype=torch.int32, device=st.T.device)
+    t0 = st.t
+    worst_act = worst_all = 0.0
+    flag_diffs = conv_diffs = n = 0
+    for _ in range(steps):
+        new = pcol.march_step(st, ft, i, t0, fn, p_int, t_end=t_end,
+                              **conv_kw)
+        ref = pcol.march_step(st.map(cpu), ft.cpu(), i.cpu(), t0.cpu(), fn_c,
+                              p_int.cpu(), t_end=t_end, **conv_c)
+        dT = (new[0].T.cpu() - ref[0].T).abs()[0, :, 0]
+        worst_act = max(worst_act, float(dT[act].max()))
+        worst_all = max(worst_all, float(dT.max()))
+        flag_diffs += int(sum(bool((a.cpu() != b).any())
+                              for a, b in zip(new[3:], ref[3:])))
+        conv_diffs += int((new[0].tsi.convective.cpu()
+                           != ref[0].tsi.convective).sum())
+        n += 1
+        st, ft = new[0], new[1]
+        i = i + 1
+        if bool((new[3] | new[4] | new[5] | new[6]).any()):
+            break
+    return worst_act, worst_all, flag_diffs, conv_diffs, n
+
+
+def phase_rg_card_vs_cpu(prg, pcol, main):
+    """The earth column, 20 steps on the card and on the CPU from a shared
+    carry (phase 4e): the largest per-step |dT| on the active cells must
+    stay within 1e-3 K (f32); all cells reported."""
+    gas, state0 = main[0], main[1]
+    act, allc, flags, _, n = rg_lockstep_card_vs_cpu(
+        prg, pcol, gas, state0, RG_CARD_CPU['steps'], RG_MAIN['t_end'],
+        RG_MAIN['flux_thresh'])
+    emit('rg_card_vs_cpu', steps=n, max_dT_active_K=act, max_dT_all_K=allc,
+         flag_diffs=flags, bound_K=RG_CARD_CPU['bound_K'])
+    check(act <= RG_CARD_CPU['bound_K'],
+          f'real-gas card and CPU steps differ by {act} K on active cells')
+
+
+def phase_rg_convective(prg, phum, pcol, mods):
+    """The convective single-line column on the card with each adjustment
+    method (phase 3j): one march by evolve_to_equilibrium, launch counts
+    read per method (K4 only on the isotonic march), the same march on the
+    CPU, and up to 200 steps of it held card vs CPU from a shared carry.
+    Each march must end within 0.1 K of its CPU counterpart on the active
+    cells, or — the march being chaotic in its last bit — stay within 0.1 K
+    at every step from the shared carry.  Returns the isotonic launches and
+    the column's cell count."""
+    import numpy as np
+    import torch
+    res, out = {}, {}
+    for method in METHODS:
+        kw = dict(flux_thresh=RG_SINGLE['flux_thresh'],
+                  convective_adjust=True, conv_method=method)
+        gas = single_line_gas(prg, phum)
+        state0 = gas.state
+        reset_counts(mods)
+        row = march_row(gas, state0, **kw)
+        launches = read_counts(mods)
+        cpu = single_line_gas(prg, phum, device='cpu')
+        cpu.evolve_to_equilibrium(**kw)
+        act = np.asarray(gas.tau_interface).max(axis=1)[1:] > 0.03
+        end_dT = float(np.abs(gas.T[:, 0] - cpu.T[:, 0])[act].max())
+        l_act, l_all, flags, conv, n = rg_lockstep_card_vs_cpu(
+            prg, pcol, gas, state0, RG_CONV['lockstep_steps'], 4.0,
+            RG_SINGLE['flux_thresh'], conv_kw=dict(convective_adjust=True, conv_method=method,
+                         p_descending=False))
+        res[method] = dict(row, nz=gas.nz, launches=launches,
+                           cpu_steps=int(cpu._equilibrium_info.steps),
+                           endpoint_max_dT_active_K=end_dT,
+                           lockstep_steps=n, lockstep_max_dT_active_K=l_act,
+                           lockstep_max_dT_all_K=l_all,
+                           lockstep_flag_diffs=flags,
+                           lockstep_convective_flag_diffs=conv,
+                           convective_levels=int(
+                               gas.state.tsi.convective.sum()))
+        out[method] = launches['iso_fit']
+    emit('rg_convective', **res)
+    check(out['isotonic'] > 0, 'K4 never launched on the real-gas isotonic '
+          'march')
+    check(out['reference'] == 0, 'K4 launched on the real-gas reference '
+          'march')
+    for method in METHODS:
+        r = res[method]
+        check(not r['failed'] and not r['nan'],
+              f'{method}: convective real-gas march failed')
+        check(r['endpoint_max_dT_active_K'] <= T_BOUND_K
+              or r['lockstep_max_dT_active_K'] <= T_BOUND_K,
+              f'{method}: convective real-gas card and CPU differ by '
+              f'{r["endpoint_max_dT_active_K"]} K at the end and '
+              f'{r["lockstep_max_dT_active_K"]} K a step')
+    return out['isotonic'], res['isotonic']['nz'] - 1
+
+
+def phase_rg_profile(prg, main):
+    """Where an earth-column step's time goes (phase 4f): rg_main's march
+    from its initial state, cut at RG_PROFILE_STEPS steps, under
+    ``torch.profiler`` (CUDA activity only): wall, device busy time,
+    device operations a step, the top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    gas, state0 = main[0], main[1]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, info = prg._real_gas_evolve(
+            state0, *gas._march_args(), RG_MAIN['flux_thresh'],
+            t_end=RG_MAIN['t_end'], max_steps=RG_PROFILE_STEPS,
+            cache=gas.transmission())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = device_rows(prof)
+    busy = sum(r[0] for r in rows) / 1e6
+    steps = int(info.steps[0])
+    emit('rg_profile', wall_s=wall, steps=steps,
+         ms_per_step=1e3 * wall / steps, device_busy_s=busy,
+         device_idle_share=1 - busy / wall if busy > 0 else None,
+         device_ms_per_step=1e3 * busy / steps,
+         device_ops_per_step=sum(r[1] for r in rows) / steps,
+         top_kernels_ms=[[kernel_label(k), round(t / 1e3, 3), c]
+                         for t, c, k in sorted(rows, reverse=True)[:10]])
+
+
+def kernel_label(name):
+    """A profiler kernel name without its namespaces and launch-bound
+    template arguments, cut to 120 characters: enough to tell one
+    elementwise functor from another."""
+    for junk in ('void ', 'at::native::', '(anonymous namespace)::',
+                 'at::', 'c10::', 'std::'):
+        name = name.replace(junk, '')
+    return name[:120]
+
+
 SW = dict(nx=2050, ny=1026, nt=400)
 SW_SMOKE = dict(nx=258, ny=130, nt=400)
 SW_RAGGED = (37, 29)
@@ -1539,12 +1902,13 @@ def timed_pair(kern, plain):
                 runs_ms=[p1, k1, k2, p2])
 
 
-def phase_times(cts, ts, ccv, pc, dev, probe):
+def phase_times(cts, ts, ccv, pc, dev, probe, rg_iso_shape):
     """Every kernel against its plain version, CUDA events (phase 5): K1 at
     the single world's [99, 1] (where the main path launches it), the
     headline's [59, 4096] and the EBM's [39, 64]; K3 at 4096 x 59, at the
     convective ensemble's 512 x 149 and at the EBM ensemble's 64 x 39 in
-    f32 and f64; K4 at 512 x 149 and at 4096 x 59, K7 on the probe's inputs
+    f32 and f64; K4 at 512 x 149, at 4096 x 59 and at the real-gas
+    convective column's 1 x n, K7 on the probe's inputs
     beside the PyTorch function of the same three quotients.  Each entry
     carries its bound: the larger of the bytes the function must move (each
     input read once, each output written once) over the card's memory rate
@@ -1582,7 +1946,7 @@ def phase_times(cts, ts, ccv, pc, dev, probe):
                                 + (n_ + 1) * b_ + 4 * b_),
                         13 * n_ * b_ + (n_ + 1) * b_ * (7 + L), rate))
     gen = torch.Generator().manual_seed(6)
-    for b_, n_ in ISO_SHAPES[:2]:
+    for b_, n_ in ISO_SHAPES[:2] + [rg_iso_shape]:
         theta, v = (x.to(dev) for x in iso_inputs(gen, b_, n_, torch.float32))
         res[f'iso_fit_{b_}x{n_}'] = dict(timed_pair(
             lambda: ccv.iso_fit(theta, v), lambda: pc.iso_rows_plain(theta, v)),
@@ -1629,7 +1993,9 @@ def main():
     from climatemodel_tpu_torch.constants import Omega, R_earth, \
         p_surface_earth
     from climatemodel_tpu_torch.models import ensemble as ens
+    from climatemodel_tpu_torch.models import column as pcol
     from climatemodel_tpu_torch.models import ice_albedo as pice
+    from climatemodel_tpu_torch.models import real_gas as prg
     from climatemodel_tpu_torch.models import shallow_water as psw
     from climatemodel_tpu_torch.models.grey import GreyGas
     from climatemodel_tpu_torch.ops import convection as pc
@@ -1638,6 +2004,9 @@ def main():
     from climatemodel_tpu_torch.ops import cuda_two_stream as cts
     from climatemodel_tpu_torch.ops import stencils as pst
     from climatemodel_tpu_torch.ops import two_stream as ts
+    from climatemodel_tpu_torch.spectral import earth_tables as pet
+    from climatemodel_tpu_torch.spectral import hitran as ph
+    from climatemodel_tpu_torch.spectral import humidity as phum
     mods = (cts, ccv)
 
     dev = torch.device('cuda', 0)
@@ -1668,17 +2037,24 @@ def main():
             phase_march_options(GreyGas, p_surface_earth, mods)]
     # each path's launches, its counts set to 0 before it and read after
     launches = {k: launches[k] + sum(m[k] for m in more) for k in launches}
+    phase_rg_tables(pet, ph)
+    rg_main = phase_rg_main(prg, phum, mods)
+    phase_rg_ensemble(prg, ens, mods)
+    phase_rg_hires(prg)
+    rg_iso_launches, rg_iso_n = phase_rg_convective(prg, phum, pcol, mods)
     k6_launches = phase_sw_main(psw, Omega, R_earth, csl, dev)
     k5_launches = phase_sw_step_path(psw, Omega, R_earth, csl, dev)
     phase_card_vs_cpu(ens, GreyGas, p_surface_earth, main_res, dev)
     phase_conv_card_vs_cpu(ens, conv_state, dev)
     phase_sw_card_vs_cpu(psw, Omega, R_earth, dev)
+    phase_rg_card_vs_cpu(prg, pcol, rg_main)
     # the kernel times before the profiled marches (see device_ms)
-    times = phase_times(cts, ts, ccv, pc, dev, probe)
+    times = phase_times(cts, ts, ccv, pc, dev, probe, (1, rg_iso_n))
     times.update(phase_sw_times(csl, pst, dev))
     phase_sw_profile(psw, Omega, R_earth, dev)
     phase_conv_profile(ens, conv_state)
     phase_ebm_profile(GreyGas, p_surface_earth)
+    phase_rg_profile(prg, rg_main)
 
     def entry(name, source, replaces, n_launch, err, t, library_ms=None):
         return {'name': name, 'route': 'cuda',
@@ -1699,7 +2075,7 @@ def main():
               at_main['net_stats_walk'], times['net_stats_walk']),
         entry('iso_fit', 'convection.cu',
               'climatemodel_tpu/ops/pallas_isotonic.py:41 (_iso_kernel, K4)',
-              conv_res['isotonic']['launches']['iso_fit'],
+              conv_res['isotonic']['launches']['iso_fit'] + rg_iso_launches,
               at_main['iso_fit'], times[iso_main]),
         entry('div_probe', 'convection.cu',
               'tools/probe_mosaic_div.py:28 (_kernel of via_pallas, K7)',

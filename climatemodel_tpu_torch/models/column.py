@@ -90,12 +90,14 @@ class TensorStruct:
 
     def map(self, fn, *others):
         """A new struct with ``fn(field, *other_fields)`` for every tensor
-        field (nested structs are mapped field by field)."""
+        field (nested structs are mapped field by field; a field that is
+        None stays None)."""
         out = {}
         for f in dataclasses.fields(self):
             mine = getattr(self, f.name)
             theirs = [getattr(o, f.name) for o in others]
-            out[f.name] = (mine.map(fn, *theirs)
+            out[f.name] = (None if mine is None else
+                           mine.map(fn, *theirs)
                            if isinstance(mine, TensorStruct)
                            else fn(mine, *theirs))
         return type(self)(**out)
@@ -119,7 +121,8 @@ class TimeStepInfo(TensorStruct):
 
 @dataclasses.dataclass
 class ColumnState(TensorStruct):
-    """Batched radiative column state (grey orientation: surface first)."""
+    """Batched radiative column state, in the owning model's orientation
+    (grey: surface first; real gas: TOA first)."""
     T: torch.Tensor                # [B, nz-1, ny] cell temperatures
     net_flux: torch.Tensor         # [B, nz, ny] net interface flux (up - down)
     t: torch.Tensor                # [B] simulated time (s)
@@ -262,11 +265,13 @@ def update_temp(state: ColumnState, net_flux, p_interface,
                 delta_stats=None, p_centre_col=None,
                 conv_thresh: float = 1e-5, conv_t_multiplier: float = 5.0,
                 conv_method: str = 'reference', changing_tau: bool = False,
-                compute_delta: bool = True):
+                compute_delta: bool = True, p_descending: bool = True,
+                net_flux_diff=None):
     """One finite-volume temperature update with adaptive dt, per member.
 
     :param net_flux: [B, nz, ny] freshly computed net flux.
-    :param p_interface: [nz, ny] interface pressures (shared by the batch).
+    :param p_interface: [nz, ny] interface pressures (shared by the batch),
+        in the model's own orientation.
     :param changing_tau: the forcing changed since the last step: every
         level updates and the delta statistic reads 1e6, as on the first
         step (base.py:169-177).
@@ -275,20 +280,29 @@ def update_temp(state: ColumnState, net_flux, p_interface,
     :param delta_stats: optional (top1, top_hi, top_lo) [B] order statistics
         of ``|net_flux - state.net_flux|`` precomputed by the fused
         flux+stats operator (ops/two_stream.grey_net_with_stats).
-    :param p_centre_col: [nz-1] cell-centre pressures (surface first), for
-        the convective adjustment.
+    :param p_centre_col: [nz-1] cell-centre pressures (the model's
+        orientation), for the convective adjustment.
     :param conv_thresh: |T change| above which an allowed level counts as
         convective (base.py:190-192).
     :param conv_t_multiplier: dt factor when the controlling level is
         convective (base.py:182-183).
     :param conv_method: 'reference' or 'isotonic' (ops/convection.py).
+    :param p_descending: the orientation of the pressure axis: True for the
+        grey model (surface first), False for the real-gas model (TOA
+        first); the convective adjustment reads it.
+    :param net_flux_diff: optional [B, nz-1, ny] adjacent-interface
+        difference ``net_flux[:, 1:] - net_flux[:, :-1]`` formed by the
+        caller in a better-conditioned order (the real-gas model differences
+        each band before the band sum); the tendency uses it in place of
+        the difference of ``net_flux`` (JAX column.py:235-244).
     :return: (new_state, delta_net_flux [B])
     """
     T = state.T
     tsi = state.tsi
     B = T.shape[0]
     # finite volume tendency dT/dt = g/c_p * dF/dp (base.py:166-168)
-    flux_diff = net_flux[:, 1:, :] - net_flux[:, :-1, :]
+    flux_diff = (net_flux[:, 1:, :] - net_flux[:, :-1, :]
+                 if net_flux_diff is None else net_flux_diff)
     T_tendency = g / c_p_dry * flux_diff / (
         p_interface[1:, :] - p_interface[:-1, :])
     tend_flat = T_tendency.reshape(B, -1)
@@ -323,7 +337,8 @@ def update_temp(state: ColumnState, net_flux, p_interface,
     T_new = torch.where(allowed.reshape(T.shape),
                         T + dt[:, None, None] * T_tendency, T)
     if convective_adjust:
-        T_adj = convective_adjustment(p_centre_col, T_new, descending=True,
+        T_adj = convective_adjustment(p_centre_col, T_new,
+                                      descending=p_descending,
                                       method=conv_method)
         conv_mask = allowed & ((T_adj - T_new).abs().reshape(B, -1)
                                > conv_thresh)             # base.py:190-192
@@ -379,6 +394,13 @@ def _exit_flags(st, net, delta, ft, t0, t_end, use_delta_exit, absmax=None):
     return eqb, failed, nan, tout
 
 
+def split_net(out):
+    """(net, net_diff) of a net flux function's result: it returns either
+    the net flux or (net, net_diff) with a better-conditioned
+    adjacent-interface difference (see :func:`update_temp`)."""
+    return out if isinstance(out, tuple) else (out, None)
+
+
 def march_step(st: ColumnState, ft, i, t0, net_flux_fn, p_interface, *,
                t_end, net_flux_thresh=1e-7, net_flux_percentile=95,
                use_delta_exit=True, net_stats_fn=None, **conv_kw):
@@ -387,20 +409,24 @@ def march_step(st: ColumnState, ft, i, t0, net_flux_fn, p_interface, *,
 
     :param ft, i, t0: [B] exit threshold, step count before this step, and
         simulated time at the start of the march.
+    :param net_flux_fn: T -> net flux, or T -> (net, net_diff).
     :param conv_kw: ``convective_adjust``, ``p_centre_col``, ``conv_thresh``,
-        ``conv_t_multiplier`` and ``conv_method`` of :func:`update_temp`.
+        ``conv_t_multiplier``, ``conv_method`` and ``p_descending`` of
+        :func:`update_temp`.
     :return: (state, ft, delta, eqb, failed, nan, timed_out) after the step.
     """
+    net_diff = None
     if net_stats_fn is not None:
         net, top1, top_hi, top_lo, absmax = net_stats_fn(st.T, st.net_flux)
         stats = (top1, top_hi, top_lo)
     else:
-        net = net_flux_fn(st.T)
+        net, net_diff = split_net(net_flux_fn(st.T))
         stats = absmax = None
     st, delta = update_temp(st, net, p_interface,
                             net_flux_thresh=net_flux_thresh,
                             net_flux_percentile=net_flux_percentile,
-                            delta_stats=stats, **conv_kw)
+                            delta_stats=stats, net_flux_diff=net_diff,
+                            **conv_kw)
     # the second iteration tightens the threshold (base.py:315-317)
     ft = torch.where(i == 1, torch.minimum(ft, 0.99 * delta), ft)
     flags = _exit_flags(st, net, delta, ft, t0, t_end, use_delta_exit,
@@ -540,12 +566,14 @@ class _Lockstep:
         st, i = self.carry[0], self.i
         failed = nan = self.no
         for _ in range(K - 1):
+            net_diff = None
             if self.net_stats_fn is not None:
                 net = self.net_stats_fn(st.T, st.net_flux)[0]
             else:
-                net = self.net_flux_fn(st.T)
+                net, net_diff = split_net(self.net_flux_fn(st.T))
             st, _ = update_temp(st, net, self.p_interface,
-                                compute_delta=False, **self.update_kw)
+                                compute_delta=False, net_flux_diff=net_diff,
+                                **self.update_kw)
             B = st.T.shape[0]
             failed = failed | (torch.amin(st.T.reshape(B, -1), dim=1) < 0)
             nan = nan | ~(torch.isfinite(st.T).reshape(B, -1).all(dim=1)
@@ -563,10 +591,11 @@ class _Lockstep:
 
 
 def _conv_kw(convective_adjust, p_centre_col, conv_thresh, conv_t_multiplier,
-             conv_method):
+             conv_method, p_descending):
     return (dict(convective_adjust=True, p_centre_col=p_centre_col,
                  conv_thresh=conv_thresh, conv_t_multiplier=conv_t_multiplier,
-                 conv_method=conv_method) if convective_adjust else {})
+                 conv_method=conv_method, p_descending=p_descending)
+            if convective_adjust else {})
 
 
 def evolve_to_equilibrium(state: ColumnState, net_flux_fn: Callable,
@@ -580,7 +609,8 @@ def evolve_to_equilibrium(state: ColumnState, net_flux_fn: Callable,
                           conv_method: str = 'reference',
                           i0=0, final_reset: bool = True, check_every: int = 1,
                           dip_memory: bool = False, debug: bool = False,
-                          net_stats_fn: Callable | None = None):
+                          net_stats_fn: Callable | None = None,
+                          p_descending: bool = True):
     """Lock-step march of a batch of columns to radiative equilibrium.
 
     Each member follows its own march exactly as the JAX package's vmapped
@@ -589,9 +619,13 @@ def evolve_to_equilibrium(state: ColumnState, net_flux_fn: Callable,
     base.py:315-317), and it freezes at its own first stop event
     (equilibrium, negative T, non-finite values, t_end, or ``max_steps``).
 
-    :param net_flux_fn: T [B, nz-1, ny] -> net flux [B, nz, ny].
-    :param p_centre_col: [nz-1] cell-centre pressures (surface first), for
-        the convective adjustment; unused by the radiative march.
+    :param net_flux_fn: T [B, nz-1, ny] -> net flux [B, nz, ny], or ->
+        (net, net_diff [B, nz-1, ny]) with the tendency's flux difference
+        (see :func:`update_temp`).
+    :param p_centre_col: [nz-1] cell-centre pressures, for the convective
+        adjustment; unused by the radiative march.
+    :param p_descending: the grid's orientation (True: surface first, the
+        grey model; False: TOA first, the real-gas model).
     :param flux_thresh: float or [B] exit threshold.
     :param convective_adjust: adjust every step to convective stability
         (ops/convection.py) with ``conv_method`` 'reference' or 'isotonic';
@@ -636,7 +670,8 @@ def evolve_to_equilibrium(state: ColumnState, net_flux_fn: Callable,
                       use_delta_exit=use_delta_exit, net_stats_fn=net_stats_fn,
                       conv_kw=_conv_kw(convective_adjust, p_centre_col,
                                        conv_thresh, conv_t_multiplier,
-                                       conv_method), debug=debug)
+                                       conv_method, p_descending),
+                      debug=debug)
     chunked = check_every > 1 and not dip_memory
     if chunked:
         # the fully checked two-step prefix (a no-op where i0 >= 2)
@@ -708,7 +743,7 @@ def evolve_snapshots(state: ColumnState, net_flux_fn: Callable, p_interface,
                      net_flux_percentile: float = 95,
                      use_delta_exit: bool = True,
                      conv_method: str = 'reference', i0=0,
-                     snapshot_on: str = 'pre'):
+                     snapshot_on: str = 'pre', p_descending: bool = True):
     """March that stacks a snapshot every ``steps_per_snap`` steps, for
     ``n_snaps`` snapshots (JAX column.py:680-758): the per-step march, each
     member frozen at its stop event (there is no step cap but the
@@ -717,7 +752,8 @@ def evolve_snapshots(state: ColumnState, net_flux_fn: Callable, p_interface,
     truncate by the snapshots' ``steps``.
 
     :param snapshot_fn: optional ``T -> tuple of tensors`` of extra
-        per-snapshot arrays (the grey model's four flux fields).
+        per-snapshot arrays (the grey model's four flux fields, the
+        real-gas model's lw/sw flux sums).
     :param snapshot_on: 'pre' evaluates ``snapshot_fn`` on the temperature
         before the snapshot's steps (the grey reference's save_data stores
         the fluxes of a step's starting temperature, grey.py:296-383);
@@ -737,7 +773,7 @@ def evolve_snapshots(state: ColumnState, net_flux_fn: Callable, p_interface,
                       use_delta_exit=use_delta_exit, net_stats_fn=None,
                       conv_kw=_conv_kw(convective_adjust, p_centre_col,
                                        conv_thresh, conv_t_multiplier,
-                                       conv_method))
+                                       conv_method, p_descending))
 
     def snap(extra):
         st, _ft, delta, eqb, failed, nan, tout = march.carry

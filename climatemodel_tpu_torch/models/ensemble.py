@@ -1,13 +1,14 @@
-"""Ensemble (batched) grey column marches (port of the grey half of
-``climatemodel_tpu/models/ensemble.py``).
+"""Ensemble (batched) column marches (port of
+``climatemodel_tpu/models/ensemble.py``): the grey ensembles and the
+real-gas ones.
 
 The JAX package vmaps one member's march over a leading ensemble axis; here
 the march is batched by construction (``column.evolve_to_equilibrium``), so
 an ensemble is a batch of B members that run lock-step until every member
 has stopped, each with its own adaptive dt, RemoveInd mask and simulated
-time.
-
-Not yet ported (ROADMAP Queue 1): the real-gas ensembles.
+time.  Real-gas members that share one composition share one
+``TransmissionCache``, so a step's flux is one batched matmul over the
+long-wave bands with the members as its N.
 """
 from __future__ import annotations
 
@@ -237,3 +238,182 @@ def grey_latitude_ensemble(world: GreyGas):
     p_int = world._tensor(world.p_interface[:, :1])
     p_c = world._tensor(world.p[:, 0])
     return states, forcings, p_int, p_c
+
+
+# --------------------------------------------------------------------------
+# real-gas ensembles (JAX models/ensemble.py:274-459)
+# --------------------------------------------------------------------------
+
+def real_gas_evolve_ensemble(states: ColumnState, F_scales, T_gs,
+                             tau_interface, ba, F_star_factor, delta,
+                             p_interface, p_centre_col, flux_thresh,
+                             convective_adjust=False, t_end=4.0,
+                             conv_thresh=1e-5, conv_t_multiplier=5.0,
+                             max_steps=500_000, use_delta_exit=True,
+                             conv_method='reference', stacked_tau=False,
+                             cache_dtype=None, check_every=1,
+                             dip_memory=False, cache=None):
+    """Lock-step real-gas march of B members (TOA-first columns).
+
+    With ``stacked_tau=False`` members share one composition: the
+    TransmissionCache is folded ONCE (or taken from ``cache``), and the
+    per-step flux is one batched matmul over the long-wave bands with the
+    member axis as its N.  Per member: insolation scale ``F_scales`` [B] and
+    ground temperature ``T_gs`` [B] (the stellar-sweep workloads,
+    centa_presentation/script.py:40-74).
+
+    With ``stacked_tau=True``, ``tau_interface`` [B, nz, n_nu] carries one
+    composition per member, each folded into its own cache (memory ~ B * L *
+    nz^2 floats): the GHG-ladder workload the reference runs as a
+    sequential loop of full marches (real_gas_script.py:27-40).
+
+    :return: (final states, ``column.EquilibriumInfo``)
+    """
+    from .real_gas import (precompute_transmission, real_gas_net_fn,
+                           stack_caches)
+    if cache is None:
+        cache = (stack_caches([precompute_transmission(t, ba, cache_dtype)
+                               for t in tau_interface]) if stacked_tau else
+                 precompute_transmission(tau_interface, ba, cache_dtype))
+    F = F_star_factor[None, :] * F_scales[:, None]
+    return column.evolve_to_equilibrium(
+        states, real_gas_net_fn(T_gs, cache, ba, F, delta), p_interface,
+        p_centre_col, flux_thresh=flux_thresh,
+        convective_adjust=convective_adjust, t_end=t_end,
+        conv_thresh=conv_thresh, conv_t_multiplier=conv_t_multiplier,
+        max_steps=max_steps, use_delta_exit=use_delta_exit,
+        conv_method=conv_method, check_every=check_every,
+        dip_memory=dip_memory, p_descending=False)
+
+
+def real_gas_ensemble(gas, F_scales=None, T_g_values=None):
+    """Batched (states, scales, T_gs, march args) from a template RealGas.
+
+    Each member starts from its own isothermal T_g profile with a FRESH march
+    state — t = 0 and a re-initialised adaptive-dt controller (the
+    reference's per-world initialisation, real_gas.py:296-299) — even when
+    the template has already been marched: a converged template's shrunk
+    delta_t would otherwise restart every member up to ~10x slower.
+    Composition — and hence the transmission cache — is shared; the march
+    args are (tau, band arrays, F_star_factor, delta, p_interface,
+    p_centre).
+    """
+    n = len(F_scales) if F_scales is not None else len(T_g_values)
+    states = broadcast_state(gas.state, n)
+    scales = gas._tensor(np.ones(n) if F_scales is None else
+                         np.asarray(F_scales, np.float64))
+    T_gs = gas._tensor(np.full(n, gas.T_g) if T_g_values is None else
+                       np.asarray(T_g_values, np.float64))
+    T0 = torch.broadcast_to(T_gs[:, None, None], states.T.shape).clone()
+    states = states.replace(
+        T=T0, net_flux=torch.zeros_like(states.net_flux),
+        t=torch.zeros_like(states.t),
+        tsi=column.init_time_step_info(gas.nz - 1, gas.temp_change,
+                                       gas.delta_temp_change, batch=n,
+                                       dtype=gas.dtype, device=gas.device))
+    delta, p_int, p_c = gas._geom_device
+    args = (gas.tau_device, gas.band_arrays, gas._F_star_factor, delta,
+            p_int, p_c)
+    return states, scales, T_gs, args
+
+
+def real_gas_find_Tg_ensemble(states, scales, T_gs0, args, flux_thresh=0.1,
+                              tol=0.5, max_iter=12, stacked_tau=False,
+                              verbose=False, **march_kw):
+    """Batched ground-temperature solve: the reference's ``find_Tg`` Newton
+    (real_gas.py:530-562, optimize.newton with no derivative = secant) as a
+    vectorised secant iteration — every trial is ONE lock-step equilibrium
+    march of all members.
+
+    :param states, scales, T_gs0, args: from :func:`real_gas_ensemble`
+        (shared composition) or :func:`real_gas_compos_ensemble` (+
+        ``stacked_tau=True``, one composition per member).
+    :param tol: per-member secant step tolerance (reference tol=0.5 K).
+    :return: (T_g [B], final states, {'converged', 'iterations',
+        'residual'})
+    """
+    from .real_gas import precompute_transmission, stack_caches
+    tsi_fresh = states.tsi
+    tau, ba = args[0], args[1]
+    cache_dtype = march_kw.pop('cache_dtype', None)
+    # the composition is fixed: fold its transmission once for every trial
+    cache = (stack_caches([precompute_transmission(t, ba, cache_dtype)
+                           for t in tau]) if stacked_tau else
+             precompute_transmission(tau, ba, cache_dtype))
+
+    def march(prev_states, T_gs):
+        # warm-start the temperature field, fresh march bookkeeping
+        st = prev_states.replace(t=torch.zeros_like(prev_states.t),
+                                 net_flux=torch.zeros_like(
+                                     prev_states.net_flux),
+                                 tsi=tsi_fresh)
+        out, _info = real_gas_evolve_ensemble(
+            st, scales, T_gs, *args, flux_thresh, stacked_tau=stacked_tau,
+            cache=cache, **march_kw)
+        return out, out.net_flux[:, 0, 0]          # TOA net flux per member
+
+    x0 = T_gs0
+    st, f0 = march(states, x0)
+    x1 = x0 * (1 + 1e-4) + 1e-4                    # scipy newton secant seed
+    st, f1 = march(st, x1)
+    done = torch.zeros(x0.shape, dtype=torch.bool, device=x0.device)
+    iters = 0
+    for iters in range(1, max_iter + 1):
+        denom = f1 - f0
+        zero = denom == 0
+        # a zero denominator means the flux response fell below the march's
+        # resolution — probe a fixed step toward balance (net > 0 at TOA =
+        # net cooling = ground too warm) instead of silently declaring the
+        # unbalanced T_g converged (scipy raises on a zero derivative)
+        probe = torch.sign(f1) * max(tol, 1.0)
+        step = torch.where(zero, probe,
+                           f1 * (x1 - x0) / torch.where(zero, 1.0, denom))
+        x2 = torch.where(done, x1, x1 - step)
+        done = done | ((torch.abs(x2 - x1) < tol) & ~zero)
+        x0, f0 = x1, f1
+        st, f2 = march(st, x2)
+        x1, f1 = x2, f2
+        if verbose:
+            print(f'find_Tg iter {iters}: {int(done.sum())}/{done.numel()}'
+                  f' converged, T_g in [{float(x1.min()):.2f}, '
+                  f'{float(x1.max()):.2f}]')
+        if bool(done.all()):
+            break
+    # hand back march-ready states: a converged trial's shrunk delta_t would
+    # restart follow-up marches ~10x slower (real_gas.py:781-784)
+    st = st.replace(t=torch.zeros_like(st.t),
+                    net_flux=torch.zeros_like(st.net_flux), tsi=tsi_fresh)
+    return x1, st, {'converged': done, 'iterations': iters, 'residual': f1}
+
+
+def real_gas_compos_ensemble(gases, T_g_values=None):
+    """Batched march inputs from one RealGas PER COMPOSITION (the GHG-ladder
+    workload, real_gas_script.py:27-40): members stack their own
+    tau_interface; pass the result to :func:`real_gas_evolve_ensemble` with
+    ``stacked_tau=True``.
+
+    All members must share the grid and wavenumber machinery (same molecules
+    and nz — only the humidity/abundance args may differ between them).
+    """
+    g0 = gases[0]
+    for gas in gases[1:]:
+        if gas.nz != g0.nz or gas.tau_device.shape != g0.tau_device.shape:
+            raise ValueError('composition members must share nz and the '
+                             'band/wavenumber structure')
+        # star/albedo/distance all fold into F_star_factor — members that
+        # differ there would silently march with g0's insolation
+        if not np.allclose(gas._F_star_factor.cpu().numpy(),
+                           g0._F_star_factor.cpu().numpy()):
+            raise ValueError('composition members must share the stellar '
+                             'forcing (T_star/R_star/distance/albedo); only '
+                             'humidity/abundance args may differ')
+    n = len(gases)
+    states = gases[0].state.map(lambda *xs: torch.cat(xs),
+                                *[gas.state for gas in gases[1:]])
+    T_gs = g0._tensor([gas.T_g for gas in gases] if T_g_values is None
+                      else np.asarray(T_g_values, np.float64))
+    scales = g0._tensor(np.ones(n))
+    taus = torch.stack([gas.tau_device for gas in gases])
+    delta, p_int, p_c = g0._geom_device
+    args = (taus, g0.band_arrays, g0._F_star_factor, delta, p_int, p_c)
+    return states, scales, T_gs, args

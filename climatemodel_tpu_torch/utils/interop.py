@@ -2,8 +2,9 @@
 
 Each function here takes a mapping of NumPy arrays keyed by the JAX package's
 field names (``ColumnState``, ``TimeStepInfo``, ``GreyForcing``, ``SWState``,
-``SWParams``), plus a device (the card unless the caller names another) and
-a float dtype, and returns the port's dataclass.  For the column structs an
+``SWParams``, ``BandArrays``, ``TransmissionCache``), plus a device (the card
+unless the caller names another) and a float dtype, and returns the port's
+dataclass.  For the column structs an
 unbatched single-column mapping (``T`` of shape [nz-1, ny]) gets a batch
 axis of one, so a JAX ``GreyGas.state`` pulled with ``jax.device_get`` and
 turned into a dict feeds the port directly.  Integer fields become int32,
@@ -18,6 +19,7 @@ import torch
 
 from ..models.column import ColumnState, TimeStepInfo
 from ..models.grey import GreyForcing
+from ..models.real_gas import BandArrays, TransmissionCache
 from ..models.shallow_water import SWParams, SWState
 
 _INT_FIELDS = ('max_tend_ind', 'n_same_1', 'n_same_2')
@@ -91,3 +93,42 @@ def sw_params_from_numpy(d, device='cuda', dtype=torch.float32) -> SWParams:
     return SWParams(**{f.name: torch.tensor(np.asarray(d[f.name]),
                                             device=device).to(dtype)
                        for f in dataclasses.fields(SWParams)})
+
+
+_INDEX_FIELDS = ('idx', 'lw_idx', 'lw_list')
+
+
+def band_arrays_from_numpy(d, device='cuda', dtype=torch.float32) -> BandArrays:
+    """:class:`~climatemodel_tpu_torch.models.real_gas.BandArrays` from a
+    mapping with the JAX field names: the index fields int64, the others
+    ``dtype``."""
+    d = _as_mapping(d)
+    out = {}
+    for f in dataclasses.fields(BandArrays):
+        a = np.asarray(d[f.name])
+        out[f.name] = (torch.tensor(a.astype(np.int64), device=device)
+                       if f.name in _INDEX_FIELDS else
+                       torch.tensor(a, device=device).to(dtype))
+    return BandArrays(**out)
+
+
+def transmission_cache_from_numpy(d, device='cuda', dtype=torch.float32
+                                  ) -> TransmissionCache:
+    """:class:`~climatemodel_tpu_torch.models.real_gas.TransmissionCache`
+    from a mapping with the JAX field names.  A bfloat16 field (the reduced
+    layout's operators) stays bfloat16; a None field stays None; every other
+    field becomes ``dtype``."""
+    d = _as_mapping(d)
+    out = {}
+    for f in dataclasses.fields(TransmissionCache):
+        v = d.get(f.name)
+        if v is None:
+            out[f.name] = None
+            continue
+        a = np.asarray(v)
+        if a.dtype.name == 'bfloat16':
+            out[f.name] = torch.tensor(a.astype(np.float32),
+                                       device=device).to(torch.bfloat16)
+        else:
+            out[f.name] = torch.tensor(a, device=device).to(dtype)
+    return TransmissionCache(**out)

@@ -31,7 +31,25 @@ def test_port_imports_with_jax_blocked():
             'climatemodel_tpu_torch.ops.stencils',
             'climatemodel_tpu_torch.ops.cuda_stencils',
             'climatemodel_tpu_torch.models.shallow_water',
-            'climatemodel_tpu_torch.models.ice_albedo'} <= set(MODULES)
+            'climatemodel_tpu_torch.models.ice_albedo',
+            'climatemodel_tpu_torch.models.real_gas',
+            'climatemodel_tpu_torch.ops.planck',
+            'climatemodel_tpu_torch.ops.transmission',
+            'climatemodel_tpu_torch.spectral.bands',
+            'climatemodel_tpu_torch.spectral.earth_tables',
+            'climatemodel_tpu_torch.spectral.hitran',
+            'climatemodel_tpu_torch.spectral.humidity',
+            'climatemodel_tpu_torch.spectral.temperature_profiles'
+            } <= set(MODULES)
+
+
+def test_port_never_loads_the_jax_packages_native_library():
+    """The port reads the shipped spectroscopy data by path, but loads
+    nothing from the JAX package's ``native/`` folder."""
+    for p in PORT.rglob('*.py'):
+        text = p.read_text()
+        for name in ("'native'", '"native"', '/native', '_hitran_native'):
+            assert name not in text, (p, name)
 
 
 def test_port_sources_never_import_jax():
