@@ -18,7 +18,13 @@ each adjustment method) and the shallow-water
 engine (bench_sw's El Nino world at 2050 x 1026 through the fused Richtmyer
 kernel, and ``ShallowWater.time_step`` through its interior mode), checks
 the card against the CPU, profiles the marches and the shallow-water run,
-and times the kernels.
+and times the kernels.  Then the README's commands run through the port's
+CLI in process (``climatemodel_tpu_torch.cli.main``: the grey worlds with
+and without --sensitivity, the earth column and its 16-member --find-tg
+sweep, El Nino with each Richtmyer solver, the ice-albedo sweep), the
+state --out wrote is loaded into card and CPU worlds whose sensitivities
+must agree, a checkpointed march must resume bit-equal, and the earth
+column's real-gas sensitivity is held to the CPU's.
 
     python3 chip_smoke.py
 
@@ -33,6 +39,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -1424,6 +1431,264 @@ def phase_rg_profile(prg, main):
                          for t, c, k in sorted(rows, reverse=True)[:10]])
 
 
+# The README's commands through the port's CLI (README.md:431-435), at
+# full width, f32 on the card; each record's launches are its own (counts
+# set to 0 before the command, read after).  ice-albedo is cut to 3 values
+# (ebm_sweep runs the 13-point sweep).
+CLI_RUNS = [
+    ('grey_thermosphere', ['grey', '--world', 'thermosphere', '--convective']),
+    ('grey_thermosphere_isotonic', ['grey', '--world', 'thermosphere',
+                                    '--convective', '--conv-method',
+                                    'isotonic', '--nz', '150']),
+    ('real_gas_earth', ['real-gas', '--molecules', 'earth', '--n-bands',
+                        '200']),
+    ('real_gas_earth_sweep', ['real-gas', '--molecules', 'earth', '--sweep',
+                              '16', '--find-tg']),
+    ('shallow_el_nino', ['shallow', '--scenario', 'el_nino']),
+    ('shallow_el_nino_fused', ['shallow', '--scenario', 'el_nino',
+                               '--solver', 'richtmyer_pallas']),
+    ('ice_albedo', ['ice-albedo', '--n-values', '3']),
+    ('grey_sensitivity', ['grey', '--world', 'scale_height',
+                          '--sensitivity']),
+    ('grey_convective_sensitivity', ['grey', '--world', 'scale_height',
+                                     '--convective', '--sensitivity']),
+]
+# the JAX CLI's record of `shallow --scenario el_nino` on the CPU
+# (`python -m climatemodel_tpu shallow --scenario el_nino`): 26 snapshots
+EL_NINO_SNAPSHOTS = 26
+# the sweep's solved T_g: the largest fall between neighbouring members
+# that the secant's noise may leave (the JAX CLI on the CPU: 1.69 K, member
+# 0 above member 1; the port on the CPU: 1.89 K, the same member)
+SWEEP_TG_SLACK_K = 2.5
+# card vs CPU at the same state, f32 (f32 vs f64 on the CPU: 5.0e-4 grey;
+# 3.8e-5 / 1.0e-4 on the earth column's active cells)
+SENS_GREY_REL = 2e-3
+SENS_RG_REL = 1e-3
+RESUME_AT = 200
+
+
+def cli_record(cli, argv):
+    """Run ``cli.main(argv)`` in process: (its JSON record, stdout lines,
+    wall)."""
+    import contextlib
+    import io
+    import torch
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    recs = [json.loads(x) for x in lines if x.startswith('{')]
+    check(len(recs) == 1, f'cli {argv}: {len(recs)} JSON records')
+    return recs[0], lines, wall
+
+
+def phase_cli(cli, mods, csl, F_sun, out_dir):
+    """The port's CLI on the card (phase 6): each of CLI_RUNS in process,
+    its record on a line of its own with the launches of K1, K4 and K6 it
+    made and its wall; the JAX tests' physical checks.  Returns (the
+    launches summed over the commands, the path of the grey state that
+    --out wrote)."""
+    import numpy as np
+    allm = tuple(mods) + (csl,)
+    total = {}
+    out_path = os.path.join(out_dir, 'grey_scale_height')
+    for name, argv in CLI_RUNS:
+        if name == 'grey_sensitivity':
+            argv = argv + ['--out', out_path]
+        reset_counts(allm)
+        rec, lines, wall = cli_record(cli, argv)
+        launches = read_counts(allm)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        res = dict(command=' '.join(argv), record=rec, wall_s=wall,
+                   launches={'lw_walk': launches['lw_walk'],
+                             'iso_fit': launches['iso_fit'],
+                             'richtmyer_step': launches['richtmyer_step_bc']
+                             + launches['richtmyer_step_interior']})
+        k1, k4, k6 = (res['launches'][k] for k in
+                      ('lw_walk', 'iso_fit', 'richtmyer_step'))
+        if name.startswith('grey'):
+            check(k1 > 0, f'{name}: K1 never launched')
+            check(np.isfinite(rec['T_surface']) and
+                  150 < rec['T_surface'] < 400, f'{name}: T_surface '
+                  f'{rec["T_surface"]}')
+            check((k4 > 0) == name.endswith('isotonic'),
+                  f'{name}: K4 launched {k4} times')
+        if name == 'grey_thermosphere':
+            check(400 < rec['nz'] < 800, f'thermosphere nz {rec["nz"]}')
+        if name.endswith('sensitivity'):
+            oracle = rec['T_surface'] / (4.0 * F_sun)
+            res['oracle_T_over_4F'] = oracle
+            res['ratio_to_oracle'] = rec['dT_surface_dF_stellar'] / oracle
+            if name == 'grey_sensitivity':
+                check(abs(res['ratio_to_oracle'] - 1) < 0.02,
+                      f'grey sensitivity {res["ratio_to_oracle"]} x T/(4F)')
+                res['state_file'] = os.path.basename(out_path) + '.npz'
+            else:
+                check(0 < res['ratio_to_oracle'] < 10,
+                      f'RCE sensitivity {res["ratio_to_oracle"]} x T/(4F)')
+        if name == 'real_gas_earth':
+            check(rec['nz'] == RG_MAIN['nz_expected'] and
+                  np.isfinite(rec['T_surface_air']),
+                  f'real-gas earth record {rec}')
+        if name == 'real_gas_earth_sweep':
+            tg = np.asarray(rec['T_g'])
+            falls = [i + 1 for i in range(len(tg) - 1) if tg[i + 1] < tg[i]]
+            res.update(n_members=len(tg), non_monotone_members=falls,
+                       largest_fall_K=float(max(0.0, -np.diff(tg).min())),
+                       T_g_slope_K_per_scale=float(
+                           np.polyfit(rec['sweep'], tg, 1)[0]))
+            check(rec['converged'] == rec['tg_converged'] == 16,
+                  f'sweep converged {rec["converged"]}, T_g solved '
+                  f'{rec["tg_converged"]} of 16')
+            check(np.isfinite(tg).all() and
+                  res['T_g_slope_K_per_scale'] > 0 and
+                  res['largest_fall_K'] < SWEEP_TG_SLACK_K,
+                  f'T_g does not rise with the insolation scale: {tg}')
+        if name.startswith('shallow'):
+            kw, run = cli.shallow_scenario('el_nino')
+            steps = int(np.fix(run['n_days'] * 86400.0 / kw['dt']) + 1)
+            res['steps'] = steps
+            check(rec['snapshots'] == EL_NINO_SNAPSHOTS,
+                  f'{name}: {rec["snapshots"]} snapshots, the JAX CLI '
+                  f'{EL_NINO_SNAPSHOTS}')
+            check(abs(rec['final_t_days'] - 25.0) < 0.01,
+                  f'{name}: ended at {rec["final_t_days"]} days')
+            want = steps if name.endswith('fused') else 0
+            check(k6 == want, f'{name}: K6 launched {k6} times, {want} '
+                  'expected')
+        if name == 'ice_albedo':
+            check(all(0.0 <= x <= 90.0 for x in rec['ice_latitude']) and
+                  len(rec['F_values']) == 5,
+                  f'ice-albedo record {rec}')
+            check(k1 > 0, 'ice-albedo: K1 never launched')
+        emit('cli_' + name, **res)
+    return total, out_path + '.npz'
+
+
+def grey_march_raw(pcol, world, state, ft, **kw):
+    net_fn, p_int, p_c = world._march_inputs(world.forcing)
+    return pcol.evolve_to_equilibrium(state, net_fn, p_int, p_c,
+                                      flux_thresh=ft, **kw)
+
+
+def phase_checkpoint(cli, GreyGas, pcol, pck, sens, state_file, mods,
+                     out_dir):
+    """Checkpoints on the card (phase 7): the state the CLI's --out wrote
+    on the card loads into a card world and a CPU world, whose grey
+    sensitivities must agree within SENS_GREY_REL; then a march
+    checkpointed at step RESUME_AT (the state with its step count and
+    tightened threshold) and resumed in a fresh world must end bit-equal
+    to the march never interrupted."""
+    import numpy as np
+    import torch
+    kw = dict(nz='auto', ny=1, **cli.grey_world_kwargs('scale_height'))
+    card = GreyGas(**kw)
+    host = GreyGas(device='cpu', **kw)
+    card._state = pck.load_pytree(state_file, card.state)
+    host._state = pck.load_pytree(state_file, host.state)
+    check(torch.equal(card.state.T.cpu(), host.state.T),
+          'the state file loaded differently on the card and the CPU')
+    t0 = time.perf_counter()
+    d_card = sens.grey_equilibrium_sensitivity(card)
+    wall_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    d_host = sens.grey_equilibrium_sensitivity(host)
+    wall_host = time.perf_counter() - t0
+    rel = float(np.abs(d_card - d_host).max() / np.abs(d_host).max())
+    res = dict(nz=card.nz, state_file=os.path.basename(state_file),
+               sensitivity_wall_card_s=wall_card,
+               sensitivity_wall_cpu_s=wall_host,
+               card_vs_cpu_rel=rel, bound_rel=SENS_GREY_REL,
+               dT_surface_card=float(d_card[0].max()),
+               dT_surface_cpu=float(d_host[0].max()))
+    # resume
+    reset_counts(mods)
+    w = GreyGas(**kw)
+    ft = 1e-3
+    full, info = grey_march_raw(pcol, w, w.state, ft)
+    half, info1 = grey_march_raw(pcol, w, w.state, ft, max_steps=RESUME_AT,
+                                 final_reset=False)
+    path = os.path.join(out_dir, 'resume')
+    pck.save_pytree(path, (half, info1.steps, info1.flux_thresh))
+    w2 = GreyGas(**kw)
+    st, i0, ft2 = pck.load_pytree(path, (w2.state,
+                                         torch.zeros_like(info1.steps),
+                                         torch.zeros_like(info1.flux_thresh)))
+    end, info2 = grey_march_raw(pcol, w2, st, ft2, i0=i0)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in
+               zip(pck.tree_flatten(end)[0], pck.tree_flatten(full)[0]))
+    same_info = all(torch.equal(a, b) for a, b in zip(info2, info))
+    res.update(resume=dict(steps=int(info.steps[0]), at=int(info1.steps[0]),
+                           equilibrium=bool(info.equilibrium[0]),
+                           bit_equal=same, info_equal=same_info,
+                           launches=read_counts(mods)))
+    emit('checkpoint', **res)
+    check(rel <= SENS_GREY_REL, f'grey sensitivity card vs CPU {rel}')
+    check(bool(info.equilibrium[0]) and int(info1.steps[0]) == RESUME_AT,
+          'the resume march did not run as planned')
+    check(same and same_info, 'the resumed march differs from the march '
+          'never interrupted')
+    return res['resume']['launches']
+
+
+def phase_sensitivity_rg(prg, sens, main):
+    """The real-gas sensitivity on the card (phase 8): the earth column
+    (nz 121, 200 bands) marched to equilibrium, then
+    real_gas_equilibrium_sensitivity with d_F_scale=0.01 and with a tau
+    direction (1% of tau: the jvp through the [L, nz, nz, K] exponent),
+    each with its wall and the tau jvp's peak memory; held to the CPU's at
+    the same state on the active cells (tau > 0.03 at some wavenumber)
+    within SENS_RG_REL, all cells reported."""
+    import numpy as np
+    import torch
+    check(torch.backends.cuda.matmul.allow_tf32 is False,
+          'f32 matmuls would run in TF32')
+    gas, state0 = main[0], main[1]
+    gas._state = state0
+    gas.evolve_to_equilibrium(flux_thresh=RG_MAIN['flux_thresh'],
+                              t_end=RG_MAIN['t_end'])
+    host = earth_gas(prg, 'auto', device='cpu')
+    host.T = gas.T
+    d_tau = 0.01 * gas.tau_interface
+    act = (np.abs(np.diff(gas.tau_interface, axis=0)) > 0.03).any(axis=1)
+    res = dict(nz=gas.nz, n_active=int(act.sum()),
+               equilibrium=bool(gas._equilibrium_info.equilibrium))
+    for name, kw in (('F_scale', dict(d_F_scale=0.01)),
+                     ('tau', dict(d_tau_interface=d_tau))):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        d_card = sens.real_gas_equilibrium_sensitivity(gas, **kw)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        t0 = time.perf_counter()
+        d_host = sens.real_gas_equilibrium_sensitivity(host, **kw)
+        wall_host = time.perf_counter() - t0
+        diff = np.abs(d_card - d_host)
+        res[name] = dict(
+            wall_card_s=wall, wall_cpu_s=wall_host, peak_extra_MB=peak / 2**20,
+            finite=bool(np.isfinite(d_card).all()),
+            rel_active=float(diff[act].max() / np.abs(d_host[act]).max()),
+            rel_all=float(diff.max() / np.abs(d_host).max()),
+            dT_surface_K=float(d_card[-1]), max_abs_dT_K=float(
+                np.abs(d_card).max()))
+    gas._state = state0
+    emit('sensitivity_rg', bound_rel=SENS_RG_REL, **res)
+    check(res['equilibrium'], 'the earth column did not reach equilibrium')
+    for name in ('F_scale', 'tau'):
+        check(res[name]['finite'], f'real-gas sensitivity ({name}) not '
+              'finite')
+        check(res[name]['rel_active'] <= SENS_RG_REL,
+              f'real-gas sensitivity ({name}) card vs CPU '
+              f'{res[name]["rel_active"]}')
+
+
 def kernel_label(name):
     """A profiler kernel name without its namespaces and launch-bound
     template arguments, cut to 120 characters: enough to tell one
@@ -1990,8 +2255,10 @@ def main():
               f'to {Path(__file__).name}', file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from climatemodel_tpu_torch.constants import Omega, R_earth, \
+    from climatemodel_tpu_torch import cli as pcli
+    from climatemodel_tpu_torch.constants import F_sun, Omega, R_earth, \
         p_surface_earth
+    from climatemodel_tpu_torch.diagnostics import sensitivity as psens
     from climatemodel_tpu_torch.models import ensemble as ens
     from climatemodel_tpu_torch.models import column as pcol
     from climatemodel_tpu_torch.models import ice_albedo as pice
@@ -2007,6 +2274,7 @@ def main():
     from climatemodel_tpu_torch.spectral import earth_tables as pet
     from climatemodel_tpu_torch.spectral import hitran as ph
     from climatemodel_tpu_torch.spectral import humidity as phum
+    from climatemodel_tpu_torch.utils import checkpoint as pck
     mods = (cts, ccv)
 
     dev = torch.device('cuda', 0)
@@ -2055,6 +2323,15 @@ def main():
     phase_conv_profile(ens, conv_state)
     phase_ebm_profile(GreyGas, p_surface_earth)
     phase_rg_profile(prg, rg_main)
+    # the port's CLI, its checkpoints and the real-gas sensitivity (phases
+    # 6-8); their launches join their kernels'
+    with tempfile.TemporaryDirectory() as out_dir:
+        cli_launches, state_file = phase_cli(pcli, mods, csl, F_sun, out_dir)
+        ck_launches = phase_checkpoint(pcli, GreyGas, pcol, pck, psens,
+                                       state_file, mods, out_dir)
+    phase_sensitivity_rg(prg, psens, rg_main)
+    for k, v in ck_launches.items():
+        cli_launches[k] += v
 
     def entry(name, source, replaces, n_launch, err, t, library_ms=None):
         return {'name': name, 'route': 'cuda',
@@ -2068,15 +2345,16 @@ def main():
         entry('lw_walk', 'two_stream.cu',
               'climatemodel_tpu/ops/pallas_two_stream.py:120 (_lw_kernel, '
               'K1) and :38 (_lw_kernel_packed, K2)',
-              launches['lw_walk'], at_main['lw_walk'], times['lw_walk']),
+              launches['lw_walk'] + cli_launches['lw_walk'],
+              at_main['lw_walk'], times['lw_walk']),
         entry('net_stats_walk', 'two_stream.cu',
               'climatemodel_tpu/ops/pallas_two_stream.py:64 '
               '(_net_stats_kernel, K3)', launches['net_stats_walk'],
               at_main['net_stats_walk'], times['net_stats_walk']),
         entry('iso_fit', 'convection.cu',
               'climatemodel_tpu/ops/pallas_isotonic.py:41 (_iso_kernel, K4)',
-              conv_res['isotonic']['launches']['iso_fit'] + rg_iso_launches,
-              at_main['iso_fit'], times[iso_main]),
+              conv_res['isotonic']['launches']['iso_fit'] + rg_iso_launches
+              + cli_launches['iso_fit'], at_main['iso_fit'], times[iso_main]),
         entry('div_probe', 'convection.cu',
               'tools/probe_mosaic_div.py:28 (_kernel of via_pallas, K7)',
               probe['launches'], probe['err'], times['div_probe'],
@@ -2086,7 +2364,9 @@ def main():
         entry('richtmyer_step', 'stencils.cu',
               'climatemodel_tpu/ops/pallas_stencils.py:158 (_kernel_body, '
               'K5) and :304 (_kernel_frame_body, K6)',
-              k6_launches + k5_launches, at_main['richtmyer_step'],
+              k6_launches + k5_launches + cli_launches['richtmyer_step_bc']
+              + cli_launches['richtmyer_step_interior'],
+              at_main['richtmyer_step'],
               times['richtmyer_step_bc']),
     ]}), flush=True)
     print(smi, flush=True)

@@ -8,11 +8,11 @@ of one for a single world, so ``GreyGas`` and the ensemble march share
 ``column.evolve_to_equilibrium``.  Array orientation matches the reference
 grey model: level index 0 = surface, nz-1 = top of atmosphere.
 
-Everything but ``plot_eqb`` (host plots, ROADMAP Queue 1) is ported: the
-constructor, grids and ``update_grid``, the forcing, the state views,
-``take_time_step``, ``save_data``, ``evolve_to_equilibrium`` with its
-snapshot march (``save=True``), chunks, exit cadences and debug checks,
-``equilibrium_sol`` and the closed-form :class:`GreySwEquilibrium`.
+Everything is ported: the constructor, grids and ``update_grid``, the
+forcing, the state views, ``take_time_step``, ``save_data``,
+``evolve_to_equilibrium`` with its snapshot march (``save=True``), chunks,
+exit cadences and debug checks, ``equilibrium_sol``, the closed-form
+:class:`GreySwEquilibrium` and the host plot ``plot_eqb``.
 """
 from __future__ import annotations
 
@@ -85,11 +85,6 @@ def grey_net_flux(T, forcing: GreyForcing):
     """Net upward flux at every interface (:func:`grey_net_flux_fn` of one
     temperature field)."""
     return grey_net_flux_fn(forcing)(T)
-
-
-def _not_ported(what):
-    return NotImplementedError(f'{what} is not ported to the PyTorch package '
-                               f'yet (ROADMAP Queue 1)')
 
 
 class GreyGas:
@@ -543,8 +538,66 @@ class GreyGas:
                 torch.tensor(np.asarray(T_eqb), **f64)).cpu().numpy()
         return up_lw, down_lw, T_eqb, up_sw, down_sw, correct
 
-    def plot_eqb(self, *args, **kwargs):
-        raise _not_ported('GreyGas.plot_eqb')
+    def plot_eqb(self, up_lw_flux_eqb, down_lw_flux_eqb, T_eqb, up_sw_flux_eqb,
+                 down_sw_flux_eqb):
+        """Optical depth / equilibrium T / equilibrium flux triple panel
+        (grey.py:453-501).  Takes the arrays returned by ``equilibrium_sol``;
+        with a short-wave absorber present, overlays the tau_sw = 0 world's
+        analytic solution as dotted curves for comparison."""
+        import matplotlib.pyplot as plt
+        fig, ax = plt.subplots(1, 3, sharey=True, figsize=(12, 5))
+        sw_color = '#1f77b4'
+        lw_color = '#ff7f0e'
+        if not self.sw_tau_is_zero:
+            ax[0].plot(self.tau_sw_interface, self.p_interface,
+                       label=r'short wave, $\tau_{sw}$', color=sw_color)
+        ax[0].plot(self.tau_interface, self.p_interface,
+                   label=r'long wave, $\tau_{lw}$', color=lw_color)
+        ax[0].set_xlabel(r'Optical depth, $\tau$')
+        ax[0].set_ylabel('Pressure / Pa')
+        ax[1].plot(T_eqb, self.p, label=r'$\tau_{sw}\neq0$', color=sw_color)
+        ax[1].set_xlabel('Temperature / K')
+        net_flux = up_lw_flux_eqb + up_sw_flux_eqb - down_lw_flux_eqb \
+            - down_sw_flux_eqb
+        F_norm = self.F_stellar_constant / 4
+        ax[2].plot(up_sw_flux_eqb / F_norm, self.p_interface, color=sw_color)
+        sw_suffix = r'(\tau_{sw}\neq0)' if not self.sw_tau_is_zero else ''
+        ax[2].plot(-down_sw_flux_eqb / F_norm, self.p_interface, color=sw_color,
+                   label=rf'$F_{{sw}}{sw_suffix}$')
+        ax[2].plot(up_lw_flux_eqb / F_norm, self.p_interface, color=lw_color,
+                   label=rf'$F_{{lw}}{sw_suffix}$')
+        ax[2].plot(-down_lw_flux_eqb / F_norm, self.p_interface, color=lw_color)
+        ax[2].plot(net_flux / F_norm, self.p_interface, label=r'$F_{net}$',
+                   color='#d62728')
+        ax[2].set_xlabel(r'Radiation Flux, $F$, as fraction of Incoming Solar, '
+                         r'$\frac{F^\odot}{4}$')
+        ax[0].invert_yaxis()
+        if not self.sw_tau_is_zero:
+            # dotted overlays from a no-short-wave twin world (grey.py:487-500)
+            ax[0].plot(self.tau_sw_interface * 0, self.p_interface,
+                       color=sw_color, linestyle='dotted',
+                       label=r'$\tau_{sw}=0$')
+            ax[0].legend()
+            no_sw = GreyGas(self.nz, self.ny, self.tau_lw_func,
+                            self.tau_lw_func_args,
+                            F_stellar_constant=self.F_stellar_constant,
+                            albedo=self.albedo,
+                            p_surface=self.p_surface, p_toa=self.p_toa,
+                            dtype=self.dtype, device=self.device)
+            up_lw0, down_lw0, T0, up_sw0, down_sw0, _ = no_sw.equilibrium_sol()
+            ax[1].plot(T0, no_sw.p, label=r'$\tau_{sw}=0$', color=sw_color,
+                       linestyle='dotted')
+            ax[1].legend()
+            ax[2].plot(up_sw0 / F_norm, no_sw.p_interface, color=sw_color,
+                       linestyle='dotted', label=r'$F_{sw}(\tau_{sw}=0)$')
+            ax[2].plot(-down_sw0 / F_norm, no_sw.p_interface, color=sw_color,
+                       linestyle='dotted')
+            ax[2].plot(up_lw0 / F_norm, no_sw.p_interface, color=lw_color,
+                       linestyle='dotted', label=r'$F_{lw}(\tau_{sw}=0)$')
+            ax[2].plot(-down_lw0 / F_norm, no_sw.p_interface, color=lw_color,
+                       linestyle='dotted')
+        ax[2].legend()
+        return fig, ax
 
     def __str__(self):
         return 'Grey Gas'

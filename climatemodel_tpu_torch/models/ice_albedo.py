@@ -8,10 +8,8 @@ warm -> cold -> warm, with a temperature-dependent step-function albedo
 ramped in increments and re-equilibrated until self-consistent.  The
 warm-start chaining makes the sweep sequential by physics (hysteresis);
 each equilibrium marches all latitudes together on the world's device, with
-one dt shared across them, as the reference does.
-
-``GreyAlbedoFeedback.plot`` (host matplotlib) is not ported yet (ROADMAP
-Queue 1).
+one dt shared across them, as the reference does.  ``plot`` draws the
+hysteresis loop on the host with matplotlib.
 """
 from __future__ import annotations
 
@@ -21,7 +19,7 @@ import numpy as np
 import torch
 
 from ..constants import p_surface_earth, p_toa_earth
-from .grey import GreyGas, _not_ported
+from .grey import GreyGas
 
 
 def albedo_step_function(latitude, T_surface=None, albedo_no_ice=0.3,
@@ -166,5 +164,31 @@ class GreyAlbedoFeedback:
             T_surface.append(self.grey_world.T[0, :].copy())
         return albedo_array, ice_latitude, T_surface
 
-    def plot(self, *args, **kwargs):
-        raise _not_ported('GreyAlbedoFeedback.plot')
+    def plot(self, ice_latitude, T_surface, T_latitude=52.4):
+        """Hysteresis plot: cooling vs warming branches
+        (ice_albedo_feedback.py:203-232)."""
+        import matplotlib.pyplot as plt
+        T_latitude = nearest_value_in_array(self.grey_world.latitude, T_latitude)
+        lat_index = int(np.where(self.grey_world.latitude == T_latitude)[0][0])
+        T_surface = np.asarray(T_surface)
+        ice_latitude = np.asarray(ice_latitude)
+        vals = self.changing_param_values
+        cool = np.arange(vals.argmin() + 1)
+        warm = np.arange(vals.argmin(), len(vals))
+        fig, axs = plt.subplots(2, 1, sharex=True, figsize=(10, 10))
+        axs[0].plot(vals[cool], ice_latitude[cool], color='red', label='cooling')
+        axs[0].plot(vals[warm], ice_latitude[warm], color='blue', label='warming')
+        axs[0].legend()
+        axs[0].set_ylabel('Ice edge latitude')
+        axs[0].set_ylim((-5, 95))
+        axs[1].plot(vals[cool], T_surface[cool, lat_index], color='red')
+        axs[1].plot(vals[warm], T_surface[warm, lat_index], color='blue')
+        axs[1].axhline(y=self.T_ice, color='k', linestyle=':', label=r'$T_{ice}$')
+        axs[1].legend()
+        axs[1].set_ylabel(f'$T_{{surface}}$ (K) at {round(T_latitude)}'
+                          r'$^{\circ}$ latitude')
+        xlab = (r'Long Wave Surface Optical Depth, $\tau_{lw, surface}$'
+                if self.changing_param == 'tau'
+                else r'Stellar Constant, $F^{\odot}$ (Wm$^{-2}$)')
+        axs[1].set_xlabel(xlab)
+        return fig

@@ -27,8 +27,8 @@ of atmosphere (ascending pressure).  Device tensors carry a leading member
 axis B (a single world is B = 1): T [B, nz-1], T_g [B], fluxes
 [B, nz, n_bands].
 
-Everything but ``plot_olr`` and ``plot_incoming_short_wave`` (host plots,
-ROADMAP Queue 1) is ported.
+Everything is ported, the host plots ``plot_olr`` and
+``plot_incoming_short_wave`` included.
 """
 from __future__ import annotations
 
@@ -984,14 +984,56 @@ class RealGas:
                 data_dict['q'][name].append(ppmv_from_humidity(q_mol, name))
         return data_dict
 
-    def plot_olr(self, *args, **kwargs):
-        raise NotImplementedError('RealGas.plot_olr is not ported to the '
-                                  'PyTorch package yet (ROADMAP Queue 1)')
+    def plot_olr(self, olr_label='Top of atmosphere', ax=None, show_bands=True):
+        """OLR spectrum vs the surface blackbody (real_gas.py:787-810)."""
+        import matplotlib.pyplot as plt
+        from .column import round_any
+        surface_up = np.asarray(B_wavenumber(self.nu_lw, self.T_g)) * np.pi
+        if ax is None:
+            _, ax = plt.subplots(1, 1)
+        ax.plot(self.nu_lw, surface_up, color='k',
+                label=f'$T_g={self.T_g:.0f}$K blackbody')
+        use = ~self.nu_bands['sw']
+        use[np.where(~use == True)[0][0] if (~use).any() else -1] = True
+        centres = self.nu_bands['centre'][use]
+        if show_bands:
+            ax.scatter(centres, np.asarray(B_wavenumber(centres, self.T_g))
+                       * np.pi, color='k', s=10)
+        ax.plot(centres, self.up_flux[0, use], label=olr_label)
+        ax.set_xlim((0, round_any(self.nu_lw.max(), 500, 'ceil')))
+        ax.set_ylim((0, round_any(surface_up.max(), 0.05, 'ceil')))
+        ax.set_xlabel('Wavenumber cm$^{-1}$')
+        ax.set_ylabel('Flux Density ((W/m$^2$)/cm$^{-1}$)')
+        ax.legend()
+        ax.set_title('Upward Planetary Radiation')
+        return ax
 
-    def plot_incoming_short_wave(self, *args, **kwargs):
-        raise NotImplementedError('RealGas.plot_incoming_short_wave is not '
-                                  'ported to the PyTorch package yet '
-                                  '(ROADMAP Queue 1)')
+    def plot_incoming_short_wave(self, sw_label='Surface', ax=None,
+                                 show_bands=True):
+        """Incoming solar spectrum at TOA vs surface (real_gas.py:812-837)."""
+        import matplotlib.pyplot as plt
+        from .column import round_any
+
+        def solar_flux(nu):
+            return np.asarray(B_wavenumber(nu, self.star['T'])) * np.pi * \
+                self.star['R'] ** 2 / self.star['star_planet_dist'] ** 2 * \
+                (1 - self.albedo) / 4
+        toa = solar_flux(self.nu_sw)
+        if ax is None:
+            _, ax = plt.subplots(1, 1)
+        ax.plot(self.nu_sw, toa, color='k', label='Top of atmosphere')
+        use = self.nu_bands['sw']
+        centres = self.nu_bands['centre'][use]
+        if show_bands:
+            ax.scatter(centres, solar_flux(centres), color='k', s=10)
+        ax.plot(centres, self.down_flux[-1, use], label=sw_label)
+        ax.set_xlim((0, round_any(self.nu_sw.max(), 10000, 'ceil')))
+        ax.set_ylim((0, round_any(toa.max(), 0.005, 'ceil')))
+        ax.set_xlabel('Wavenumber cm$^{-1}$')
+        ax.set_ylabel('Flux Density ((W/m$^2$)/cm$^{-1}$)')
+        ax.legend()
+        ax.set_title('Downward Solar Radiation')
+        return ax
 
     def __str__(self):
         return 'Real Gas'

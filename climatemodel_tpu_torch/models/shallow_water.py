@@ -16,10 +16,8 @@ steps through the fused Richtmyer kernel: :func:`sw_step` in its interior
 mode (K5), :func:`sw_simulate` / :func:`sw_simulate_snapshots` in its
 boundary-condition mode (K6, the counterpart of the JAX package's padded
 frame path, on unpadded fields).  The kernel takes every grid size, so the
-solver is never swapped.
-
-Not ported yet (ROADMAP Queue 1): ``plot_animate`` and ``el_nino_plot``
-(host matplotlib, with the diagnostics slice).
+solver is never swapped.  ``plot_animate`` and ``el_nino_plot`` are host
+matplotlib on NumPy copies of a run's snapshots.
 """
 from __future__ import annotations
 
@@ -806,6 +804,97 @@ class ShallowWater:
 
     # ------------- El Nino diagnostics -------------
 
+    def plot_animate(self, t_array, h_array, u_array, v_array, nPlotFrames=50,
+                     fract_frames_at_start=0.0):
+        """Height + vorticity animation with velocity quiver
+        (shallow_water.py:580-725): surface height on a diverging colormap
+        about the median initial height, vorticity about zero, axes normalised
+        by the deformation radius."""
+        import matplotlib.pyplot as plt
+        from matplotlib.animation import FuncAnimation
+        from mpl_toolkits.axes_grid1 import make_axes_locatable
+
+        fig, axs = plt.subplots(2, 1, sharex=True,
+                                figsize=(12 + int(max(self.nx / 250 - 1, 0)),
+                                         6 + int(max(self.ny / 50 - 1, 0))))
+        cax1 = make_axes_locatable(axs[0]).append_axes('right', '5%', '5%')
+        cax2 = make_axes_locatable(axs[1]).append_axes('right', '5%', '5%')
+        interval = int(min(6, self.ny / 5, self.nx / 5))
+
+        t_plot = np.asarray(t_array)
+        h_plot = np.asarray(h_array)
+        u_plot = np.asarray(u_array)
+        v_plot = np.asarray(v_array)
+        if t_plot.size > nPlotFrames:
+            start_end = int(fract_frames_at_start * nPlotFrames)
+            use_start = np.arange(0, start_end)
+            use_end = np.unique(np.linspace(start_end, t_plot.size - 1,
+                                            int((1 - fract_frames_at_start)
+                                                * nPlotFrames),
+                                            dtype=int))[1:]
+            use = np.concatenate((use_start, use_end))
+            t_plot, h_plot = t_plot[use], h_plot[use]
+            u_plot, v_plot = u_plot[use], v_plot[use]
+
+        # axes normalised by the deformation radius (shallow_water.py:627-634)
+        c = np.sqrt(self.g * np.median(h_plot[0]))
+        if self.f_0 == 0 and self.beta == 0:
+            L_def = c * 3600
+        elif self.f_0 != 0:
+            L_def = c / self.f_0
+        else:
+            L_def = np.sqrt(c / self.beta)
+        x = self.X[1:-1, 0] / L_def
+        y = self.Y[0, 1:-1] / L_def
+        h_base = self.h_base[1:-1, 1:-1]
+        h_surf = h_plot[:, 1:-1, 1:-1] + h_base
+        med = np.median(self.h_surface)
+        dmax = np.abs(h_surf - med).max()
+        h_lims = (med - dmax, med + dmax)
+        vort = np.stack([stencils.centered_diff_x(v_plot[i], self.dx)
+                         - stencils.centered_diff_y(u_plot[i], self.dy)
+                         for i in range(t_plot.size)])
+        v_lims = (-np.abs(vort).max(), np.abs(vort).max())
+        min_space = min(self.dx / L_def, self.dy / L_def)
+        vel_max = np.sqrt((u_plot ** 2 + v_plot ** 2).max())
+        scale = min_space * interval / max(vel_max, 1e-30)
+
+        def animate(i):
+            cax1.cla()
+            cax2.cla()
+            axs[0].clear()
+            axs[1].clear()
+            im = axs[0].imshow(h_surf[i].T, extent=[x.min(), x.max(),
+                                                    y.min(), y.max()],
+                               cmap='bwr', origin='lower')
+            fig.colorbar(im, cax=cax1).set_label('height (m)')
+            if self.orography_info['type'] != 'flat':
+                axs[0].contour(x, y, h_base.T, colors='g', alpha=0.25)
+            u_i = u_plot[i][1:-1, 1:-1]
+            v_i = v_plot[i][1:-1, 1:-1]
+            axs[0].quiver(x[2::interval], y[2::interval],
+                          (u_i[2::interval, 2::interval] * scale).T,
+                          (v_i[2::interval, 2::interval] * scale).T,
+                          scale_units='xy', scale=1, minshaft=2, pivot='mid')
+            im2 = axs[1].imshow(vort[i].T, extent=[x.min(), x.max(),
+                                                   y.min(), y.max()],
+                                cmap='bwr', origin='lower')
+            fig.colorbar(im2, cax=cax2).set_label('vorticity (s$^{-1}$)')
+            im.set_clim(h_lims)
+            im2.set_clim(v_lims)
+            for ax in axs:
+                ax.axis((x.min(), x.max(), y.min(), y.max()))
+            t_days, t_hours = divmod(t_plot[i] / 3600.0, 24)
+            axs[0].text(0.5, 1.01,
+                        f'{t_days:.0f} Days and {t_hours:.1f} Hours',
+                        horizontalalignment='center',
+                        verticalalignment='bottom',
+                        transform=axs[0].transAxes)
+
+        self._animate_frame = animate    # exposed for tests
+        return FuncAnimation(fig, animate, frames=t_plot.size, interval=100,
+                             blit=False, repeat_delay=200)
+
     def el_nino_seasonal_wind(self, t):
         w = self.initial_info['wind']
         t_year = 365 * 24 * 60 ** 2
@@ -823,3 +912,42 @@ class ShallowWater:
         flat = h.reshape(h.shape[0], -1)
         return (flat[:, east.ravel()].mean(axis=1),
                 flat[:, west.ravel()].mean(axis=1))
+
+    def el_nino_plot(self, t, h, x_average_width=None, y_average_width=None):
+        """East/west thermocline + wind time-series plot
+        (shallow_water.py:768-828)."""
+        import matplotlib.pyplot as plt
+        w = self.initial_info['wind']
+        # 'is None' (not falsy-or): an explicit 0 width selects the boundary
+        # column, like the reference (shallow_water.py:785-788)
+        if x_average_width is None:
+            x_average_width = w['x_average_width']
+        if y_average_width is None:
+            y_average_width = w['y_average_width']
+        h_east, h_west = self.get_average_east_west_boundary_thickness(
+            h, x_average_width, y_average_width)
+        h_avg = np.asarray(h)[0].mean()
+        t_days = np.asarray(t) / 86400.0
+        fig, ax = plt.subplots(1, 1, figsize=(12, 5))
+        ln1 = ax.plot(t_days, h_east, label=r'$\overline{h}_{east}$', color='b')
+        ln2 = ax.plot(t_days, h_west, label=r'$\overline{h}_{west}$', color='r')
+        rng = max(np.abs(h_east - h_avg).max(), np.abs(h_west - h_avg).max())
+        ax.set_ylim((h_avg - rng * 1.1, h_avg + rng * 1.1))
+        ax.set_ylabel('Thermocline Depth / m')
+        ax.set_xlabel('Time / days')
+        ax2 = ax.twinx()
+        feedback = w['gamma'] * (h_east - h_west)
+        if 'seasonal' in w['type']:
+            seasonal = self.el_nino_seasonal_wind(np.asarray(t))
+            total = feedback + seasonal - w['initial_tau_over_h']
+            ln3 = ax2.plot(t_days, seasonal, 'g--', label='seasonal wind')
+        else:
+            total = feedback
+            ln3 = ax2.plot(t_days, np.full_like(t_days,
+                                                w['initial_tau_over_h']),
+                           'g--', label='Initial wind')
+        ln4 = ax2.plot(t_days, total, 'k--', label='total wind')
+        ax2.set_ylabel(r'Wind: $\tau^x / h_{mean}$')
+        lns = ln1 + ln2 + ln3 + ln4
+        ax.legend(lns, [l.get_label() for l in lns], loc=0)
+        return fig

@@ -15,6 +15,13 @@ device goes to the CUDA kernel in ``ops/cuda_two_stream.py``, which raises
 where it cannot launch.  There is no fallback from the kernel to the plain
 version.
 
+The TOA-first orientation and the differentiable path of the
+sensitivities (:func:`lw_flux_plain`) evaluate the same recurrence as an
+affine scan in log depth (:func:`affine_scan`), in the JAX package's
+``lax.associative_scan`` order and with out-of-place tensor ops only, so
+``torch.func.jacfwd`` can batch it.  The scan is plain PyTorch on every
+device; it is not a path of the ``lw_walk`` kernel.
+
 Short-wave fluxes are the closed-form Beer law (grey.py:277-294).
 """
 from __future__ import annotations
@@ -62,6 +69,99 @@ def lw_flux_sequential(T, dtau, up_flux_toa):
     return flux[:, 0], flux[:, 1]
 
 
+def _combine(a1, b1, a2, b2):
+    """The affine maps x -> a1 x + b1, then x -> a2 x + b2, as one."""
+    return a1 * a2, a2 * b1 + b2
+
+
+def _interleave(even, odd):
+    """Rows even[0], odd[0], even[1], odd[1], ... (len(even) is len(odd)
+    or one more)."""
+    n = odd.shape[0]
+    both = torch.stack([even[:n], odd], 1).reshape((2 * n,) + odd.shape[1:])
+    return torch.cat([both, even[n:]], 0)
+
+
+def _associative_scan(a, b):
+    """Inclusive prefix composition of the affine maps (a_k, b_k) along
+    axis 0, in the recursion and rounding order of JAX's
+    ``lax.associative_scan``: pairs combined, the half-length scan
+    recursed, the even elements finished from it."""
+    n = a.shape[0]
+    if n < 2:
+        return a, b
+    ra, rb = _combine(a[0:-1:2], b[0:-1:2], a[1::2], b[1::2])
+    oa, ob = _associative_scan(ra, rb)
+    if n % 2 == 0:
+        ea, eb = _combine(oa[:-1], ob[:-1], a[2::2], b[2::2])
+    else:
+        ea, eb = _combine(oa, ob, a[2::2], b[2::2])
+    ea = torch.cat([a[:1], ea], 0)
+    eb = torch.cat([b[:1], eb], 0)
+    return _interleave(ea, oa), _interleave(eb, ob)
+
+
+def affine_scan(a, b, x0, reverse=False):
+    """Solve x_{k+1} = a_k * x_k + b_k for k = 0..n-1 along axis 0, in log
+    depth.
+
+    :param a, b: tensors [n, ...] of recurrence coefficients.
+    :param x0: tensor [...] initial value.
+    :param reverse: if True, solves x_k = a_k * x_{k+1} + b_k with x_n = x0
+        (the recurrence runs from the last element towards the first).
+    :return: tensor [n+1, ...]; element 0 (or n if reverse) equals x0.
+    """
+    if reverse:
+        a = torch.flip(a, (0,))
+        b = torch.flip(b, (0,))
+    A, B = _associative_scan(a, b)
+    out = torch.cat([x0[None], A * x0 + B], 0)
+    if reverse:
+        out = torch.flip(out, (0,))
+    return out
+
+
+def _lw_scan_eval(T, dtau, up_toa, reverse=True):
+    """Scan evaluation of both streams over [nz-1, ...] cells; the boundary
+    ``up_toa`` broadcasts against T's trailing axes."""
+    e_plus = torch.exp(dtau)
+    e_minus = torch.exp(-dtau)
+    source = _source(T)
+    # channel axis 1: 0 = up-stream, 1 = down-stream
+    a = torch.stack([e_plus, e_minus], 1)
+    b = torch.stack([source * (1.0 - e_plus), source * (1.0 - e_minus)], 1)
+    up0 = torch.broadcast_to(torch.as_tensor(up_toa, dtype=T.dtype,
+                                             device=T.device), T.shape[1:])
+    x_toa = torch.stack([up0, torch.zeros_like(up0)])
+    flux = affine_scan(a, b, x_toa, reverse=reverse)
+    return flux[:, 0], flux[:, 1]
+
+
+def _column_dtau(dtau, T):
+    """|d tau| broadcast to T's shape (a [nz-1] dtau is column-shared)."""
+    while dtau.ndim < T.ndim:
+        dtau = dtau[..., None]
+    return torch.broadcast_to(dtau, T.shape)
+
+
+def lw_flux_plain(T, dtau, up_flux_toa, surface_first=True):
+    """Differentiable evaluation of :func:`lw_flux` by :func:`affine_scan`:
+    out-of-place tensor ops on any device, so ``torch.func.jacfwd`` and
+    ``torch.func.jvp`` pass through it (a kernel behind ctypes has no
+    forward-mode rule).  Same semantics and shapes as :func:`lw_flux`;
+    ``diagnostics/sensitivity.py`` uses it."""
+    batch_shape = T.shape[1:]
+    nlev = T.shape[0]
+    Tf = T.reshape(nlev, -1)
+    dtauf = _column_dtau(dtau, T).reshape(nlev, -1)
+    toaf = torch.broadcast_to(torch.as_tensor(up_flux_toa, dtype=T.dtype,
+                                              device=T.device), batch_shape)
+    up, down = _lw_scan_eval(Tf, dtauf, toaf.reshape(-1),
+                             reverse=surface_first)
+    return (up.reshape((nlev + 1,) + batch_shape),
+            down.reshape((nlev + 1,) + batch_shape))
+
+
 def lw_flux(T, dtau, up_flux_toa, surface_first=True):
     """Grey long-wave up/down fluxes at interfaces from cell temperatures.
 
@@ -70,18 +170,19 @@ def lw_flux(T, dtau, up_flux_toa, surface_first=True):
         difference| across each cell.
     :param up_flux_toa: [...] top-of-atmosphere upward flux boundary
         condition ((1-albedo_mod) * solar_latitude_factor * F_stellar / 4).
-    :param surface_first: only True (index 0 = surface) is ported.
+    :param surface_first: orientation of axis 0: True (index 0 = surface,
+        the grey model's) walks the ``lw_walk`` kernel on the card and its
+        plain twin on the CPU; False (index 0 = TOA) takes the scan form,
+        as the JAX package does.
     :return: (up_lw_flux, down_lw_flux) at interfaces, shape [nz, ...].
     """
     if not surface_first:
-        raise NotImplementedError(
-            'the TOA-first orientation is not ported yet (ROADMAP Queue 1)')
+        return _lw_scan_eval(T, _column_dtau(dtau, T), up_flux_toa,
+                             reverse=False)
     batch_shape = T.shape[1:]
     nlev = T.shape[0]
-    while dtau.ndim < T.ndim:                   # column-shared [nz-1] dtau
-        dtau = dtau[..., None]
     Tf = T.reshape(nlev, -1).contiguous()
-    dtauf = torch.broadcast_to(dtau, T.shape).reshape(nlev, -1).contiguous()
+    dtauf = _column_dtau(dtau, T).reshape(nlev, -1).contiguous()
     toaf = torch.broadcast_to(torch.as_tensor(up_flux_toa, dtype=T.dtype,
                                               device=T.device),
                               batch_shape).reshape(-1).contiguous()

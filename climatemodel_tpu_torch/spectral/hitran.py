@@ -416,6 +416,39 @@ def _save_atomic(path, table):
 
 
 # --------------------------------------------------------------------------
+# diagnostics
+# --------------------------------------------------------------------------
+
+def plot_absorption_coefficient(molecule_name, p_plot, T_plot, ax=None,
+                                do_plot=True, folder=None):
+    """Absorption coefficient vs wavenumber at the table's nearest (p, T)
+    (hitran.py:360-387).  With ``do_plot=False`` returns (nu, k) arrays."""
+    table = load_table(molecule_name, folder)
+    p_index = int(np.abs(table['p'] - p_plot).argmin())
+    T_index = int(np.abs(table['T'] - T_plot).argmin())
+    absorption_coef = table['absorption_coef'][p_index, T_index]
+    if not do_plot:
+        return table['nu'], absorption_coef
+    import matplotlib.pyplot as plt
+    if ax is None:
+        fig, ax = plt.subplots(1, 1)
+    else:
+        fig = ax.figure
+    ax.plot(table['nu'], absorption_coef)
+    ax.set_yscale('log')
+    ax.set_ylim((1e-10, max(1e6, float(absorption_coef.max()))))
+    visible = np.where(absorption_coef > 1e-10)[0]
+    if visible.size:
+        ax.set_xlim(table['nu'].min(), table['nu'][visible[-1]])
+    ax.set_xlabel('Wavenumber cm$^{-1}$')
+    ax.set_ylabel('Absorption coefficient (m$^2$/kg)')
+    ax.set_title(f"{molecule_name} at "
+                 f"({int(round(table['T'][T_index]))} K, "
+                 f"{int(round(table['p'][p_index]))} Pa), air-broadened")
+    return fig, ax
+
+
+# --------------------------------------------------------------------------
 # shipped toy gases (the reference's spectroscopy test fixtures)
 # --------------------------------------------------------------------------
 

@@ -108,8 +108,8 @@ def test_single_column_api():
     reference's flags, a repeat march restarts the clock and honours
     T_initial (test_grey_rce.py:170), the march options run and converge
     (snapshots, chunk_steps, bake_forcing, check_every > 1, take_time_step),
-    debug refuses what the JAX package refuses, and plot_eqb, not ported,
-    raises."""
+    debug refuses what the JAX package refuses, and plot_eqb draws its
+    three panels (its data is held to JAX's in test_torch_olr_plots.py)."""
     world = GreyGas(nz=30, ny=1, tau_lw_func='scale_height',
                     tau_lw_func_args=[0.22 * p_surface_earth, 4.0],
                     device='cpu')
@@ -139,8 +139,12 @@ def test_single_column_api():
                    dict(save=False, dip_memory=True)):
         with pytest.raises(ValueError, match='debug'):
             world.evolve_to_equilibrium(debug=True, **kwargs)
-    with pytest.raises(NotImplementedError):
-        world.plot_eqb()
+    import matplotlib
+    matplotlib.use('Agg')
+    import matplotlib.pyplot as plt
+    fig, ax = world.plot_eqb(*world.equilibrium_sol()[:5])
+    assert len(ax) == 3 and all(len(a.lines) > 0 for a in ax)
+    plt.close(fig)
 
 
 def _latitude_worlds():

@@ -130,8 +130,12 @@ def test_sweep_ordering_warm_cold_warm():
     with pytest.raises(ValueError):
         pice.GreyAlbedoFeedback(np.array([1, 2.0]), np.array([1.0, 2]), 20, 4,
                                 **LW, **CPU64)
-    with pytest.raises(NotImplementedError):
-        exp_p.plot([], [])
+    import matplotlib
+    matplotlib.use('Agg')
+    import matplotlib.pyplot as plt
+    fig = exp_p.plot(np.full(5, 90.0), np.full((5, 4), 280.0))
+    assert len(fig.axes) == 2 and len(fig.axes[0].lines) == 2
+    plt.close(fig)
 
 
 def test_stellar_sweep_grows_ice_when_cooling():

@@ -39,7 +39,14 @@ def test_port_imports_with_jax_blocked():
             'climatemodel_tpu_torch.spectral.earth_tables',
             'climatemodel_tpu_torch.spectral.hitran',
             'climatemodel_tpu_torch.spectral.humidity',
-            'climatemodel_tpu_torch.spectral.temperature_profiles'
+            'climatemodel_tpu_torch.spectral.temperature_profiles',
+            'climatemodel_tpu_torch.cli',
+            'climatemodel_tpu_torch.__main__',
+            'climatemodel_tpu_torch.diagnostics.sensitivity',
+            'climatemodel_tpu_torch.diagnostics.olr',
+            'climatemodel_tpu_torch.diagnostics.animation',
+            'climatemodel_tpu_torch.utils.checkpoint',
+            'climatemodel_tpu_torch.utils.timing',
             } <= set(MODULES)
 
 
