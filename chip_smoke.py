@@ -24,7 +24,11 @@ and without --sensitivity, the earth column and its 16-member --find-tg
 sweep, El Nino with each Richtmyer solver, the ice-albedo sweep), the
 state --out wrote is loaded into card and CPU worlds whose sensitivities
 must agree, a checkpointed march must resume bit-equal, and the earth
-column's real-gas sensitivity is held to the CPU's.
+column's real-gas sensitivity is held to the CPU's.  The sharded worlds
+(``parallel/``) run on 4 shards of the card: bench_sw's worlds through
+``ShardedShallowWater`` (each shard on the fused kernel's 'given' mode;
+the wind-free world bit-equal to the unsharded run), the 2-D
+decomposition and the level-sharded flux scan.
 
     python3 chip_smoke.py
 
@@ -754,6 +758,17 @@ def phase_conv_main(ens, GreyGas, p_surface_earth, mods, dev):
     return out, (states, forcings, p_int, p_c, world)
 
 
+# The profiled marches are cut to a window: the first 300 lock-step
+# iterations of the convective march (the isotonic one runs ~1320; the
+# reference one ends at ~70, inside the window), the first simulated year of
+# the EBM's (of 4).  Under the profiler the whole marches took 170 s of a
+# 918 s run of this script on an NVIDIA H100 80GB HBM3 machine, the limit
+# being 1200 s.  A window's figures a step are the window's own, not the
+# whole march's: later steps may differ.
+PROFILE_ITERS = 300
+PROFILE_EBM_T_END = 1.0
+
+
 def device_rows(prof):
     """(device us, launches, name) of each kernel that a
     ``torch.profiler`` profile recorded on the device."""
@@ -764,15 +779,17 @@ def device_rows(prof):
 
 
 def phase_ebm_profile(GreyGas, p_surface_earth):
-    """Where a shared-dt EBM march's time goes (phase 4d): one march of
-    bench_ebm's world under ``torch.profiler`` (CUDA activity only): wall,
-    device busy time, device operations a step, the top kernels."""
+    """Where a shared-dt EBM march's time goes (phase 4d): the first
+    PROFILE_EBM_T_END years of bench_ebm's march (a quarter of its ~1780
+    steps) under ``torch.profiler`` (CUDA activity only): wall, device busy
+    time, device operations a step, the top kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     w = icy_ebm(GreyGas, p_surface_earth)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        w.evolve_to_equilibrium(flux_thresh=EBM['flux_thresh'], save=False)
+        w.evolve_to_equilibrium(flux_thresh=EBM['flux_thresh'], save=False,
+                                t_end=PROFILE_EBM_T_END)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = device_rows(prof)
@@ -787,10 +804,11 @@ def phase_ebm_profile(GreyGas, p_surface_earth):
 
 
 def phase_conv_profile(ens, conv_state):
-    """Where a convective ensemble march's time goes (phase 4c): one march
-    per method under ``torch.profiler`` (CUDA activity only): wall, device
-    busy time (the kernels' time summed), kernel launches per lock-step
-    iteration, and the kernels that take the most device time."""
+    """Where a convective ensemble march's time goes (phase 4c): the
+    first PROFILE_ITERS lock-step iterations of each method's march under
+    ``torch.profiler`` (CUDA activity only): wall, device busy time (the
+    kernels' time summed), kernel launches per lock-step iteration, and
+    the kernels that take the most device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     states, forcings, p_int, p_c, _ = conv_state
@@ -801,7 +819,7 @@ def phase_conv_profile(ens, conv_state):
             _, info = ens.grey_evolve_ensemble(
                 states, forcings, p_int, p_c, CONV['flux_thresh'],
                 convective_adjust=True, conv_method=method,
-                max_steps=CONV['max_steps'])
+                max_steps=min(CONV['max_steps'], PROFILE_ITERS))
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         rows = device_rows(prof)
@@ -1791,13 +1809,15 @@ def phase_sw_kernels(csl, pst, dev):
     """The fused Richtmyer step (K5 and K6) against its plain version on the
     card: f32 and f64, the interior mode and every boundary mode, flat
     orography with row f and r and orography with full fields, a ragged
-    grid, the edge shapes SW_EDGE and 2050 x 1026; then ok False and a NaN
-    in u (phase 2d)."""
+    grid, the edge shapes SW_EDGE, one shard of the sharded run ([514,
+    1026], where ``sharded_sw`` launches the ``given`` mode) and 2050 x 1026;
+    then ok False and a NaN in u (phase 2d)."""
     import torch
     at_main = {}
+    shard = ((SW['nx'] - 2) // SHARDS + 2, SW['ny'])
     for dtype in (torch.float32, torch.float64):
         gen = torch.Generator().manual_seed(40)
-        for nx, ny in [SW_RAGGED, *SW_EDGE, (SW['nx'], SW['ny'])]:
+        for nx, ny in [SW_RAGGED, *SW_EDGE, shard, (SW['nx'], SW['ny'])]:
             for flat, rows in ((True, True), (False, False)):
                 x = sw_inputs(gen, nx, ny, dtype, dev, flat, rows)
                 for bx, by in SW_MODES:
@@ -1823,10 +1843,14 @@ def phase_sw_kernels(csl, pst, dev):
                     check(max(ulps.values()) <= SW_ULP_BOUND and max2_equal,
                           f'richtmyer_step {nx}x{ny} {dtype} ({bx}, {by}) '
                           f'flat={flat}: {ulps} ulp, max2 equal {max2_equal}')
-                    if ((nx, ny, bx, by, flat) == (SW['nx'], SW['ny'], 'walls',
-                                                   'walls', True)
+                    # the main paths' shapes and modes: the whole grid's
+                    # walls/walls and a shard's given/walls
+                    if ((nx, ny, bx, by, flat) in (
+                            (SW['nx'], SW['ny'], 'walls', 'walls', True),
+                            (*shard, 'given', 'walls', True))
                             and dtype == torch.float32):
-                        at_main['richtmyer_step'] = err
+                        at_main['richtmyer_step'] = max(
+                            err, at_main.get('richtmyer_step', 0.0))
         # ok False freezes the step; a NaN in u makes max2 NaN
         x = sw_inputs(gen, *SW_RAGGED, dtype, dev, False, False)
         x['u'][5, 7] = float('nan')
@@ -2010,6 +2034,236 @@ def phase_sw_step_path(psw, Omega, R_earth, csl, dev, n=5):
     return k5
 
 
+# The sharded phases (parallel/): SHARDS shards of the one card, the way
+# JAX's shard_map runs its shards from one controller
+SHARDS = 4
+SW_2D = dict(nx=SW_SMOKE['nx'], ny=SW_SMOKE['ny'], nt=50, mesh=(2, 2))
+# bench_grey's scale-height column at nz=61: 60 layers, which SHARDS divide
+LEVEL_SCAN = dict(nz=61, members=4096)
+# The level-sharded scan against the unsharded scan and the walk, as the
+# largest |difference| over the largest |flux| of each stream.  The f32
+# recurrence's own rounding is the bound's scale: on the CPU (4 shards, 4096
+# members) the unsharded scan and the walk differ by 1.1e-5 of the largest
+# up flux, the sharded scan by 6.0e-6 and 1.1e-5 from them; 5e-5 leaves a
+# factor of 4.  f64: 2.3e-14 and below.
+LEVEL_SCAN_REL_BOUND = {'torch.float32': 5e-5, 'torch.float64': 1e-12}
+
+
+def level_scan_inputs(GreyGas, p_surface_earth, members, dtype, dev):
+    """The level scan's inputs: the bench_grey world at nz=61 (its |dtau|,
+    shared by the members), its analytic radiative-equilibrium T scaled to
+    each member's insolation F in HEADLINE['F'] (T ~ F^(1/4)), and the TOA
+    boundary (1 - albedo) F / 4."""
+    import numpy as np
+    import torch
+    world = build_world(GreyGas, p_surface_earth, LEVEL_SCAN['nz'], 'cpu')
+    _, _, T_eqb, *_ = world.equilibrium_sol()
+    F = np.linspace(*HEADLINE['F'], members)
+    T = np.asarray(T_eqb)[:, :1] * (F / world.F_stellar_constant) ** 0.25
+    t = lambda a: torch.tensor(a).to(dtype).to(dev)  # noqa: E731
+    return (t(T), t(world.dtau[:, 0]),
+            t((1.0 - world.albedo[0]) * F / 4.0))
+
+
+def phase_sharded_sw(psw, phalo, pmesh, Omega, R_earth, csl, dev,
+                     devices=None):
+    """The x-sharded shallow-water world on the card (phase 3e): bench_sw's
+    El Nino world and its wind-free world at 2050 x 1026, f32,
+    richtmyer_pallas, through ``ShardedShallowWater(world, mesh).run`` on
+    SHARDS shards of the one card: per shard the fused kernel in its
+    'given' mode (K6), the halo rows, the pmax'd CFL and the psum'd wind.
+    400 steps from the initial state, a warm run then the best of 3, in
+    turns with the unsharded ``sw_simulate`` from the same state.  The K6
+    count covers the sharded runs only and must be SHARDS x their steps;
+    K5 0.  Checked: the wind-free world bit-equal to the unsharded run in
+    h, u, v, t and dt; each shard's max2 its own; El Nino within the card
+    vs CPU bounds of the unsharded run, ok and finite.  ``devices``: the
+    shards' devices (default SHARDS x ``dev``; ``chip_sharded.py`` passes
+    one card each); the world and the unsharded runs stay on ``dev``."""
+    import torch
+    nt = SW['nt']
+    cells = (SW['nx'] - 2) * (SW['ny'] - 2)
+    devices = devices or [dev] * SHARDS
+    mesh = pmesh.make_mesh(('x',), devices=devices)
+    res = {}
+    sharded_steps = 0
+    k6 = k5 = 0
+    for el_nino in (True, False):
+        world = sw_world(psw, Omega, R_earth, SW['nx'], SW['ny'], el_nino,
+                         device=dev)
+        st0 = world.state
+        kw = world._step_kwargs()
+        params = world.params
+        sh = phalo.ShardedShallowWater(world, mesh)
+        check(sh.use_kernel, f'el_nino={el_nino}: the sharded world is not '
+              f'on the kernel path')
+        walls, plain_walls = [], []
+        for rep in range(4):
+            # each run from the initial state (F7: the El Nino world turns
+            # unstable near its x-wall/sponge corners after ~500 steps)
+            world._state = st0
+            csl.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sh.run(nt)                 # reads ok at its end
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            k6 += csl.launch_counts['richtmyer_step_bc']
+            k5 += csl.launch_counts['richtmyer_step_interior']
+            sharded_steps += nt
+            t0 = time.perf_counter()
+            ref = psw.sw_simulate(st0, params, nt, **kw)
+            torch.cuda.synchronize()
+            plain_wall = time.perf_counter() - t0
+            if rep:                    # the first of each is the warm run
+                walls.append(wall)
+                plain_walls.append(plain_wall)
+        state = world.state
+        wall, plain_wall = min(walls), min(plain_walls)
+        r = dict(use_kernel=sh.use_kernel, wall_s=wall,
+                 ms_per_step=1e3 * wall / nt,
+                 cell_updates_per_sec=cells * nt / wall,
+                 unsharded_wall_s=plain_wall,
+                 unsharded_ms_per_step=1e3 * plain_wall / nt,
+                 unsharded_cell_updates_per_sec=cells * nt / plain_wall,
+                 runs_s=walls, unsharded_runs_s=plain_walls,
+                 local_grid=[sh.local_nx + 2, SW['ny']],
+                 ok=bool(state.ok), t_days=float(state.t) / 86400.0,
+                 max_dh_m=max_abs(state.h, ref.h),
+                 max_du=max_abs(state.u, ref.u),
+                 max_dv=max_abs(state.v, ref.v))
+        check(r['ok'], f'el_nino={el_nino}: the sharded run aborted')
+        check(all(bool(torch.isfinite(x).all())
+                  for x in (state.h, state.u, state.v)),
+              'sharded run: non-finite fields')
+        if el_nino:
+            check(r['max_dh_m'] < SW_DH_BOUND_M and r['max_du'] < SW_DU_BOUND
+                  and r['max_dv'] < SW_DU_BOUND,
+                  f'sharded El Nino vs unsharded: {r}')
+            res['el_nino'] = r
+        else:
+            same = {k: bool(torch.equal(getattr(state, k), getattr(ref, k)))
+                    for k in ('h', 'u', 'v', 't', 'dt')}
+            own = []
+            for i, m in enumerate(sh.max2):
+                rows = slice(1 + i * sh.local_nx, 1 + (i + 1) * sh.local_nx)
+                u, v = state.u[rows, 1:-1], state.v[rows, 1:-1]
+                own.append(bool(m.to(dev) == torch.max(u * u + v * v)))
+            r.update(bit_equal=same, max2_per_shard_own=own)
+            check(all(same.values()), f'sharded wind-free world differs from '
+                  f'the unsharded run: {same}')
+            check(all(own), f'a shard\'s max2 is not its own: {own}')
+            res['no_wind'] = r
+    launches = {'richtmyer_step_bc': k6, 'richtmyer_step_interior': k5}
+    res.update(shards=len(devices), devices=[str(d) for d in devices],
+               steps=nt, grid=[SW['nx'], SW['ny']],
+               launches=launches, sharded_steps_taken=sharded_steps,
+               wall_s=res['el_nino']['wall_s'],
+               ms_per_step=res['el_nino']['ms_per_step'],
+               cell_updates_per_sec=res['el_nino']['cell_updates_per_sec'],
+               bound_dh_m=SW_DH_BOUND_M, bound_du=SW_DU_BOUND)
+    emit('sharded_sw', **res)
+    check(k6 == len(devices) * sharded_steps,
+          f'K6 launched {k6} times for {sharded_steps} sharded steps on '
+          f'{len(devices)} shards')
+    check(k5 == 0, 'K5 launched on the sharded path')
+    return k6
+
+
+def phase_sharded_2d(psw, phalo, pmesh, Omega, R_earth, csl, dev,
+                     devices=None):
+    """``ShardedShallowWater2D`` on a (2, 2) mesh of the card (phase 3f):
+    bench_sw's worlds at the smoke size, richtmyer_pallas, SW_2D['nt']
+    steps.  The swap to the plain richtmyer must warn (the kernel has no
+    halo mode in y); the wind-free world is bit-equal to the unsharded
+    plain richtmyer run, El Nino within the card vs CPU bounds; no
+    Richtmyer kernel launches."""
+    import warnings
+    import torch
+    nt = SW_2D['nt']
+    mesh = pmesh.make_mesh(('x', 'y'), shape=SW_2D['mesh'],
+                           devices=devices or [dev] * SHARDS)
+    res = {}
+    csl.reset_launch_counts()
+    for el_nino in (True, False):
+        world = sw_world(psw, Omega, R_earth, SW_2D['nx'], SW_2D['ny'],
+                         el_nino, device=dev)
+        st0 = world.state
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter('always')
+            sh = phalo.ShardedShallowWater2D(world, mesh)
+        warned = any(issubclass(w.category, UserWarning)
+                     and 'richtmyer_pallas' in str(w.message) for w in caught)
+        t0 = time.perf_counter()
+        sh.run(nt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ref = psw.sw_simulate(st0, world.params, nt,
+                              **dict(world._step_kwargs(), solver='richtmyer'))
+        state = world.state
+        r = dict(warned=warned, solver=sh.solver, wall_s=wall,
+                 ok=bool(state.ok), max_dh_m=max_abs(state.h, ref.h),
+                 max_du=max_abs(state.u, ref.u),
+                 max_dv=max_abs(state.v, ref.v))
+        check(warned and sh.solver == 'richtmyer',
+              'ShardedShallowWater2D swapped richtmyer_pallas without a '
+              'UserWarning')
+        check(r['ok'] and all(bool(torch.isfinite(x).all())
+                              for x in (state.h, state.u, state.v)),
+              f'2-D sharded run (el_nino={el_nino}) aborted or non-finite')
+        if el_nino:
+            check(r['max_dh_m'] < SW_DH_BOUND_M and r['max_du'] < SW_DU_BOUND
+                  and r['max_dv'] < SW_DU_BOUND, f'2-D El Nino: {r}')
+            res['el_nino'] = r
+        else:
+            same = {k: bool(torch.equal(getattr(state, k), getattr(ref, k)))
+                    for k in ('h', 'u', 'v', 't', 'dt')}
+            r['bit_equal'] = same
+            check(all(same.values()), f'2-D wind-free world differs from '
+                  f'the unsharded run: {same}')
+            res['no_wind'] = r
+    launches = dict(csl.launch_counts)
+    emit('sharded_2d', mesh=list(SW_2D['mesh']), steps=nt,
+         grid=[SW_2D['nx'], SW_2D['ny']], launches=launches, **res)
+    check(sum(launches.values()) == 0, 'a Richtmyer kernel launched on the '
+          '2-D path')
+
+
+def phase_level_scan(GreyGas, p_surface_earth, pls, pmesh, ts, dev,
+                     devices=None):
+    """``lw_flux_level_sharded`` on SHARDS shards of the card (phase 3g):
+    bench_grey's column at nz=61, LEVEL_SCAN['members'] members, f32,
+    against the unsharded scan (``lw_flux_plain``) and the walk
+    (``lw_flux``: K1 at [60, members]) within LEVEL_SCAN_REL_BOUND; call
+    times of the three by CUDA events."""
+    import torch
+    dtype = torch.float32
+    T, dtau, toa = level_scan_inputs(GreyGas, p_surface_earth,
+                                     LEVEL_SCAN['members'], dtype, dev)
+    mesh = pmesh.make_mesh(('lev',), devices=devices or [dev] * SHARDS)
+    bound_rel = LEVEL_SCAN_REL_BOUND[str(dtype)]
+    got = pls.lw_flux_level_sharded(T, dtau, toa, mesh, 'lev')
+    res = dict(shape=list(T.shape), shards=mesh.size, dtype=str(dtype),
+               bound_rel=bound_rel)
+    for name, fn in (('plain_scan', ts.lw_flux_plain), ('walk', ts.lw_flux)):
+        ref = fn(T, dtau, toa)
+        res[f'rel_err_vs_{name}'] = [
+            float((g.double() - r.double()).abs().max()
+                  / r.double().abs().max()) for g, r in zip(got, ref)]
+    res['finite'] = all(bool(torch.isfinite(g).all()) for g in got)
+    res['call_ms'] = {
+        'sharded': time_ms(lambda: pls.lw_flux_level_sharded(
+            T, dtau, toa, mesh, 'lev'), reps=20),
+        'plain_scan': time_ms(lambda: ts.lw_flux_plain(T, dtau, toa),
+                              reps=20),
+        'walk': time_ms(lambda: ts.lw_flux(T, dtau, toa), reps=20)}
+    emit('level_scan', **res)
+    check(res['finite'], 'level scan: non-finite fluxes')
+    for name in ('plain_scan', 'walk'):
+        check(max(res[f'rel_err_vs_{name}']) <= bound_rel,
+              f'level scan vs {name}: {res[f"rel_err_vs_{name}"]}')
+
+
 def phase_sw_card_vs_cpu(psw, Omega, R_earth, dev, full_steps=20):
     """The card against the port's plain path on the CPU from one shared
     state, free running: the full-width El Nino world for ``full_steps``
@@ -2069,6 +2323,45 @@ def phase_sw_profile(psw, Omega, R_earth, dev, nt=100):
     return res
 
 
+def phase_sharded_profile(psw, phalo, pmesh, Omega, R_earth, dev, nt=100):
+    """Where a sharded El Nino step's time goes (phase 4f): ``nt`` steps of
+    ``ShardedShallowWater.run`` on SHARDS shards of the card under
+    ``torch.profiler``: device operations per step, the device's idle share,
+    the fused kernel's device time a step (SHARDS launches) against the rest
+    (halo copies, collectives, the wind, the max2 recompute)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    world = sw_world(psw, Omega, R_earth, SW['nx'], SW['ny'], device=dev)
+    st0 = world.state
+    sh = phalo.ShardedShallowWater(world, pmesh.make_mesh(
+        ('x',), devices=[dev] * SHARDS))
+    sh.run(5)
+    world._state = st0
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sh.run(nt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = device_rows(prof)
+    busy = sum(r[0] for r in rows) / 1e6
+    fused = sum(r[0] for r in rows if 'richtmyer_kernel' in r[2]) / 1e6
+    fused_n = sum(r[1] for r in rows if 'richtmyer_kernel' in r[2])
+    res = dict(steps=nt, shards=SHARDS, wall_s=wall,
+               ms_per_step=1e3 * wall / nt, device_busy_s=busy,
+               device_idle_share=1 - busy / wall if busy > 0 else None,
+               device_ops_per_step=sum(r[1] for r in rows) / nt,
+               fused_kernel_ms_per_step=1e3 * fused / nt,
+               fused_kernel_ms_per_launch=(1e3 * fused / fused_n
+                                           if fused_n else None),
+               fused_launches_recorded=fused_n,
+               rest_ms_per_step=1e3 * (busy - fused) / nt,
+               top_kernels_ms=[[k[:60], round(t / 1e3, 3), c] for t, c, k in
+                               sorted(rows, reverse=True)[:8]])
+    emit('sharded_profile', **res)
+    return res
+
+
 def phase_sw_times(csl, pst, dev):
     """The fused step at 2050 x 1026 f32 against its plain version (phase
     5b): K6 walls/walls with row f and r and flat orography (the bench
@@ -2098,6 +2391,19 @@ def phase_sw_times(csl, pst, dev):
             grid=[nx, ny], mode='interior',
             bound=bound(read + 4 * (3 * cells + 1), SW_OPS_FLAT * cells)),
     }
+    # one shard of the sharded run: K6 'given' on [lnx + 2, ny]; it writes
+    # no x ghost row
+    sx = (nx - 2) // SHARDS + 2
+    xs = sw_inputs(gen, sx, ny, torch.float32, dev, True, True)
+    sbufs = tuple(torch.empty_like(xs['h']) for _ in range(3))
+    sargs = sw_args(xs)
+    scells = (sx - 2) * (ny - 2)
+    res['richtmyer_step_given'] = dict(timed_pair(
+        lambda: csl.richtmyer_step(*sargs, bx='given', by='walls', out=sbufs),
+        lambda: pst.richtmyer_step_bc_plain(*sargs, 'given', 'walls')),
+        grid=[sx, ny], mode='given/walls',
+        bound=bound(4 * (3 * sx * ny + 2 * (ny - 2))
+                    + 4 * (3 * (sx - 2) * ny + 1), SW_OPS_FLAT * scells))
     emit('kernel_times', **res)
     return res
 
@@ -2271,6 +2577,9 @@ def main():
     from climatemodel_tpu_torch.ops import cuda_two_stream as cts
     from climatemodel_tpu_torch.ops import stencils as pst
     from climatemodel_tpu_torch.ops import two_stream as ts
+    from climatemodel_tpu_torch.parallel import halo as phalo
+    from climatemodel_tpu_torch.parallel import level_scan as pls
+    from climatemodel_tpu_torch.parallel import mesh as pmesh
     from climatemodel_tpu_torch.spectral import earth_tables as pet
     from climatemodel_tpu_torch.spectral import hitran as ph
     from climatemodel_tpu_torch.spectral import humidity as phum
@@ -2312,6 +2621,12 @@ def main():
     rg_iso_launches, rg_iso_n = phase_rg_convective(prg, phum, pcol, mods)
     k6_launches = phase_sw_main(psw, Omega, R_earth, csl, dev)
     k5_launches = phase_sw_step_path(psw, Omega, R_earth, csl, dev)
+    # parallel/: the x-sharded world on K6's given mode, the 2-D
+    # decomposition and the level-sharded flux scan
+    k6_sharded = phase_sharded_sw(psw, phalo, pmesh, Omega, R_earth, csl,
+                                  dev)
+    phase_sharded_2d(psw, phalo, pmesh, Omega, R_earth, csl, dev)
+    phase_level_scan(GreyGas, p_surface_earth, pls, pmesh, ts, dev)
     phase_card_vs_cpu(ens, GreyGas, p_surface_earth, main_res, dev)
     phase_conv_card_vs_cpu(ens, conv_state, dev)
     phase_sw_card_vs_cpu(psw, Omega, R_earth, dev)
@@ -2320,6 +2635,7 @@ def main():
     times = phase_times(cts, ts, ccv, pc, dev, probe, (1, rg_iso_n))
     times.update(phase_sw_times(csl, pst, dev))
     phase_sw_profile(psw, Omega, R_earth, dev)
+    phase_sharded_profile(psw, phalo, pmesh, Omega, R_earth, dev)
     phase_conv_profile(ens, conv_state)
     phase_ebm_profile(GreyGas, p_surface_earth)
     phase_rg_profile(prg, rg_main)
@@ -2363,8 +2679,10 @@ def main():
                           else times['div_probe']['library_ms'])),
         entry('richtmyer_step', 'stencils.cu',
               'climatemodel_tpu/ops/pallas_stencils.py:158 (_kernel_body, '
-              'K5) and :304 (_kernel_frame_body, K6)',
-              k6_launches + k5_launches + cli_launches['richtmyer_step_bc']
+              'K5) and :304 (_kernel_frame_body, K6; its bx=given mode '
+              ':397, :450)',
+              k6_launches + k5_launches + k6_sharded
+              + cli_launches['richtmyer_step_bc']
               + cli_launches['richtmyer_step_interior'],
               at_main['richtmyer_step'],
               times['richtmyer_step_bc']),

@@ -208,15 +208,20 @@ def atmosphere_wind(params: SWParams, h_bc, t, wind_type, east_mask=None,
 # The step
 # --------------------------------------------------------------------------
 
-def _cfl(state: SWState, params: SWParams, max2, target_courant):
+def cfl_dt(max2, t, dt_prev, ok, dt_0, dx, dy, target_courant):
     """(dt, ok) of the next step from max(u^2+v^2): CFL control after the
-    first step, and the dt < 10 s abort (shallow_water.py:321-337)."""
+    first step, and the dt < 10 s abort (shallow_water.py:321-337); ``ok``
+    is the carried flag.  The sharded steps (``parallel/halo.py``) share it."""
     max_u = torch.sqrt(max2)
-    dt_cfl = torch.minimum(params.dt_0,
-                           target_courant * torch.minimum(params.dx, params.dy)
+    dt_cfl = torch.minimum(dt_0, target_courant * torch.minimum(dx, dy)
                            / max_u)
-    dt = torch.where(state.t > 0, dt_cfl, state.dt)
-    return dt, state.ok & (dt >= 10.0)
+    dt = torch.where(t > 0, dt_cfl, dt_prev)
+    return dt, ok & (dt >= 10.0)
+
+
+def _cfl(state: SWState, params: SWParams, max2, target_courant):
+    return cfl_dt(max2, state.t, state.dt, state.ok, params.dt_0, params.dx,
+                  params.dy, target_courant)
 
 
 def _orography_gradients(params: SWParams, flat_orography):

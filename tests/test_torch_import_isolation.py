@@ -5,6 +5,8 @@ import re
 import subprocess
 import sys
 
+import pytest
+
 import climatemodel_tpu_torch
 
 PORT = pathlib.Path(climatemodel_tpu_torch.__file__).parent
@@ -47,6 +49,10 @@ def test_port_imports_with_jax_blocked():
             'climatemodel_tpu_torch.diagnostics.animation',
             'climatemodel_tpu_torch.utils.checkpoint',
             'climatemodel_tpu_torch.utils.timing',
+            'climatemodel_tpu_torch.parallel.mesh',
+            'climatemodel_tpu_torch.parallel.collectives',
+            'climatemodel_tpu_torch.parallel.halo',
+            'climatemodel_tpu_torch.parallel.level_scan',
             } <= set(MODULES)
 
 
@@ -64,3 +70,17 @@ def test_port_sources_never_import_jax():
                      re.MULTILINE)
     for p in PORT.rglob('*.py'):
         assert not pat.search(p.read_text()), p
+
+
+@pytest.mark.parametrize('module', ['mesh', 'collectives', 'halo',
+                                    'level_scan'])
+def test_parallel_module_imports_alone_with_jax_blocked(module):
+    """Each ``parallel`` module on its own, in a fresh interpreter with
+    ``jax`` and the JAX package blocked."""
+    code = ('import sys\n'
+            "sys.modules['jax'] = None\n"
+            "sys.modules['climatemodel_tpu'] = None\n"
+            f'import climatemodel_tpu_torch.parallel.{module}\n')
+    proc = subprocess.run([sys.executable, '-c', code], cwd=PORT.parent,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
