@@ -28,24 +28,33 @@ column's real-gas sensitivity is held to the CPU's.  The sharded worlds
 (``parallel/``) run on 4 shards of the card: bench_sw's worlds through
 ``ShardedShallowWater`` (each shard on the fused kernel's 'given' mode;
 the wind-free world bit-equal to the unsharded run), the 2-D
-decomposition and the level-sharded flux scan.
+decomposition and the level-sharded flux scan.  Last, the line-accumulation
+backends of ``spectral/hitran`` (the four earth tables and a 1e5-line list
+built with the C++ library and with PyTorch on the card, held to each other
+and to a NumPy row), the nine example scripts
+(``climatemodel_tpu_torch.examples``) at their tests' sizes with their
+claims, and reverse mode: a gradient through ``sw_simulate`` on the card
+against the CPU, and each kernel wrapper refusing an input that requires
+grad.
 
     python3 chip_smoke.py
 
 Every phase prints one JSON line.  The last lines are the kernel summary,
 the card's name and power limit as nvidia-smi reports them, and
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero before
-that last line.  Needs one CUDA device and ``nvcc``; imports no JAX.
+that last line.  Needs one CUDA device, ``nvcc`` and ``g++``; imports no
+JAX.
 """
 from __future__ import annotations
 
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -224,17 +233,25 @@ SOURCES = ('two_stream', 'convection', 'stencils')
 
 
 def build_all():
-    """One nvcc per source under ops/csrc/, and the PTX of convection.cu,
-    all at once; one 'build' line per source with its registers a thread
-    per kernel and any nonzero spills.  Returns the PTX."""
+    """One nvcc per source under ops/csrc/, the PTX of convection.cu and
+    the native HITRAN library (g++), all at once; one 'build' line per
+    source, with its registers a thread per kernel and any nonzero spills
+    for the CUDA ones.  Returns the PTX."""
+    from climatemodel_tpu_torch import native
     from climatemodel_tpu_torch.ops import _cuda_build as cuda_build
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(SOURCES) + 1) as pool:
+    with ThreadPoolExecutor(max_workers=len(SOURCES) + 2) as pool:
         futures = {name: pool.submit(cuda_build.build, name)
                    for name in SOURCES}
         ptx_future = pool.submit(cuda_build.ptx, 'convection')
+        native_future = pool.submit(native.build)
         built = {name: f.result() for name, f in futures.items()}
         ptx_text = ptx_future.result()
+        native_lib = native_future.result()
+    emit('build', source='climatemodel_tpu_torch/native/hitran_native.cpp',
+         seconds_all=time.perf_counter() - t0,
+         library=os.path.relpath(native_lib, ROOT),
+         openmp=native_lib == native._target(native.FLAG_SETS[0]))
     for name, res in built.items():
         log = res.log.splitlines()
         # ptxas: "Compiling entry function '<mangled>'" then "Used N
@@ -1011,9 +1028,6 @@ def phase_ebm_sweep(pice, p_surface_earth, mods):
     ice-edge latitudes up to the first sweep point where a latitude
     differs, and there a march on each device ends with that latitude
     within SWEEP_T_BOUND_K of T_ice.  Returns the launches."""
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
-
     import numpy as np
     with ProcessPoolExecutor(
             1, mp_context=multiprocessing.get_context('spawn')) as pool:
@@ -1705,6 +1719,417 @@ def phase_sensitivity_rg(prg, sens, main):
         check(res[name]['rel_active'] <= SENS_RG_REL,
               f'real-gas sensitivity ({name}) card vs CPU '
               f'{res[name]["rel_active"]}')
+
+
+# --------------------------------------------------------------------------
+# the line-accumulation backends, the example scripts, gradients
+# --------------------------------------------------------------------------
+
+#: the synthetic line list of the hitran_backends phase: 1e5 lines, the
+#: size docs/hitran_dropin.md:43-45 names for a real HITRAN list
+HITRAN_SYNTH = dict(lines=100_000, nu=(0.0, 5000.0), gamma_air=(0.02, 0.12),
+                    n_air=(0.4, 0.9), log10_sw=(-4.0, 2.0), seed=2026)
+#: 'torch' against 'native', of each table's largest entry (index_add_ on
+#: the card adds with atomics, in no fixed order)
+HITRAN_TORCH_REL = 1e-12
+#: 'native' against 'numpy' on one temperature row, of the row's largest
+#: entry: the same sums in the same line order, but NumPy's vectorised pow
+#: and exp may round an ulp from libm's (CPU tests: within 5e-16)
+HITRAN_NUMPY_REL = 1e-14
+
+
+def synthetic_lines(np, n, nu, gamma_air, n_air, log10_sw, seed):
+    rng = np.random.default_rng(seed)
+    return {'nu': rng.uniform(*nu, n), 'sw': 10.0 ** rng.uniform(*log10_sw, n),
+            'gamma_air': rng.uniform(*gamma_air, n),
+            'n_air': rng.uniform(*n_air, n)}
+
+
+def write_headed_lines(np, path, lines):
+    """``lines`` as a headed whitespace line file (the shipped
+    ``HitranData/*.txt`` layout: molec_id 2, the main isotopologue)."""
+    n = len(lines['nu'])
+    cols = ('molec_id', 'local_iso_id', 'nu', 'sw', 'elower', 'gamma_air',
+            'n_air')
+    body = np.column_stack([np.full(n, 2.0), np.ones(n), lines['nu'],
+                            lines['sw'], np.zeros(n), lines['gamma_air'],
+                            lines['n_air']])
+    np.savetxt(path, body, fmt='%.6E', header=' '.join(cols), comments='')
+
+
+def phase_hitran_backends(ph, pet, dev):
+    """The line accumulation's backends on the four earth tables at the
+    default grid (200 pressures x 6 temperatures, dnu = 10) and on a
+    synthetic list of 1e5 lines: make_table with 'native' (the C++ library
+    built from the checkout) and with 'torch' on the card, 'torch' held to
+    'native'.  On the earth gases one temperature row with 'numpy', held to
+    the same row from 'native' (NumPy is not timed on the 1e5 list: no
+    'auto' path takes it).  The 1e5 list is also written as a headed .txt
+    and parsed both ways load_molecule_data can (the native parser and
+    np.genfromtxt), to weigh the parse against the table build.  Walls on
+    the host clock, the card's name and power limit beside them."""
+    import numpy as np
+    import torch
+    from climatemodel_tpu_torch import native
+    check(native.available(), 'the native HITRAN library did not build')
+    # CUDA context, allocator and the first kernels off the clock
+    ph.get_absorption_coefficient(ph.table_p_values[:2], np.full(2, 250.0),
+                                  np.arange(0.0, 50.0, 10.0),
+                                  {'nu': np.array([20.0]),
+                                   'sw': np.array([1.0]),
+                                   'gamma_air': np.array([0.1]),
+                                   'n_air': np.array([0.7])},
+                                  backend='torch', device=dev)
+    torch.cuda.synchronize()
+    fixtures = pet.fixture_folder()
+    cases = {}
+    for name in ('CO2', 'CH4', 'H2O', 'O3'):
+        nu_min, nu_max = pet._NU_RANGE[name]
+        wn = np.arange(nu_min, nu_max + ph.table_dnu / 2, ph.table_dnu)
+        lines = ph.update_molecule_data(ph.load_molecule_data(name, fixtures),
+                                        wn)
+        cases[name] = (name, wn, lines)
+    synth = synthetic_lines(np, HITRAN_SYNTH['lines'], HITRAN_SYNTH['nu'],
+                            HITRAN_SYNTH['gamma_air'], HITRAN_SYNTH['n_air'],
+                            HITRAN_SYNTH['log10_sw'], HITRAN_SYNTH['seed'])
+    cases['synthetic_1e5'] = (synth, np.arange(0.0, 5000.0 + 5.0, 10.0), synth)
+    p, T0 = ph.table_p_values, float(ph.table_T_values[0])
+    rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for case, (what, wn, lines) in cases.items():
+            tables, walls = {}, {}
+            for backend in ('native', 'torch'):
+                t0 = time.perf_counter()
+                tab = ph.make_table(what, wavenumber_array=wn,
+                                    data_folder=fixtures,
+                                    output_folder=os.path.join(tmp, backend),
+                                    overwrite=True, backend=backend,
+                                    device=dev)
+                walls[backend] = time.perf_counter() - t0
+                tables[backend] = tab['absorption_coef']
+            nat, tor = tables['native'], tables['torch']
+            check(nat.shape == tor.shape and nat.shape[:2] == (200, 6),
+                  f'hitran {case}: table shapes {nat.shape} {tor.shape}')
+            rel_torch = float(np.abs(tor - nat).max() / np.abs(nat).max())
+            rows[case] = dict(
+                lines=int(len(lines['nu'])), shape=list(nat.shape),
+                native_wall_s=walls['native'], torch_wall_s=walls['torch'],
+                torch_vs_native_rel=rel_torch)
+            check(np.isfinite(tor).all() and rel_torch <= HITRAN_TORCH_REL,
+                  f'hitran {case}: torch vs native {rel_torch:.3g} > '
+                  f'{HITRAN_TORCH_REL}')
+            if case == 'synthetic_1e5':
+                continue
+            t0 = time.perf_counter()
+            row_np = ph.get_absorption_coefficient(p, np.full(p.size, T0), wn,
+                                                   lines, backend='numpy')
+            numpy_row_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            row_nat = ph.get_absorption_coefficient(p, np.full(p.size, T0),
+                                                    wn, lines,
+                                                    backend='native')
+            native_row_s = time.perf_counter() - t0
+            rel_np = float(np.abs(row_np - row_nat).max()
+                           / np.abs(row_nat).max())
+            rows[case].update(
+                numpy_one_row_wall_s=numpy_row_s,
+                native_one_row_wall_s=native_row_s,
+                numpy_vs_native_rel=rel_np,
+                numpy_row_bit_equal=bool(np.array_equal(row_np, row_nat)))
+            check(rel_np <= HITRAN_NUMPY_REL,
+                  f'hitran {case}: numpy vs native {rel_np:.3g} > '
+                  f'{HITRAN_NUMPY_REL}')
+        path = os.path.join(tmp, 'CO2.txt')
+        write_headed_lines(np, path, synth)
+        t0 = time.perf_counter()
+        body = native.parse_numeric_table(path, skip_lines=1)
+        parse_native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gen = np.genfromtxt(path, names=True)
+        parse_genfromtxt_s = time.perf_counter() - t0
+        same = all(np.array_equal(body[:, k], gen[name])
+                   for k, name in enumerate(gen.dtype.names))
+        check(body.shape == (HITRAN_SYNTH['lines'], 7) and same,
+              f'hitran parse: native {body.shape} differs from genfromtxt')
+    emit('hitran_backends', nvidia_smi=nvidia_smi_line(),
+         native_library=os.path.relpath(native.build(), ROOT),
+         grid='200 p x 6 T, dnu 10', torch_device=str(dev),
+         numpy_timed='one temperature row (T = 250 K) of each earth gas',
+         cases=rows,
+         parse_1e5_lines={'native_s': parse_native_s,
+                          'genfromtxt_s': parse_genfromtxt_s,
+                          'bit_equal': same},
+         bounds={'torch_vs_native_rel': HITRAN_TORCH_REL,
+                 'numpy_vs_native_rel': HITRAN_NUMPY_REL})
+
+
+#: what the examples phase cuts from each script's own configuration
+#: (``<script>.MAIN`` over the ``run_*`` defaults): depth only, never a
+#: width (nz, ny, bands, grid) or the dtype.  The ice-albedo walkthrough
+#: runs one of its two hysteresis sweeps (tau_lw_surface 4.6) on every
+#: third of its stellar constants (dF 150 instead of 50: 21 marches of its
+#: 142); radiation_script's ice-albedo sweep takes the top 2 of its 11
+#: values.  Coarser sweeps are no cut but another experiment: at dF 350 the
+#: walkthrough's snowball marches fall below 0 K, and at dF 150 the
+#: tau 4.0 sweep tops out at 2100 W/m^2, under its deglaciation at 2150
+#: (ny 30, f32, the card).  The walkthrough's own configuration ran on the
+#: card as ``python -m climatemodel_tpu_torch.examples.walkthrough_ice_albedo
+#: --device cuda --no-figures`` (PERF.md).
+EXAMPLES_CUTS = {
+    'walkthrough_ice_albedo': dict(tau_surfaces=(4.6,), dF=150.0),
+    'radiation_script': dict(sweep_values=(1950.0, 2100.0)),
+}
+
+
+def examples_ice_albedo(device='cuda'):
+    """The examples phase's ice-albedo walkthrough (``MAIN`` with its
+    EXAMPLES_CUTS) on the card, for a process of its own: the transition
+    fluxes of each sweep, its wall and its launches (counted from 0 in the
+    fresh process)."""
+    import torch
+    sys.path.insert(0, str(ROOT))
+    from climatemodel_tpu_torch.examples import walkthrough_ice_albedo as w
+    from climatemodel_tpu_torch.ops import cuda_convection as ccv
+    from climatemodel_tpu_torch.ops import cuda_two_stream as cts
+    mods = (cts, ccv)
+    cfg = {**w.MAIN, **EXAMPLES_CUTS['walkthrough_ice_albedo']}
+    reset_counts(mods)
+    t0 = time.perf_counter()
+    out = w.run_walkthrough(**cfg, save_png=False, verbose=False,
+                            device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    num = lambda x: None if x is None else float(x)  # noqa: E731
+    return dict(wall_s=wall, launches=read_counts(mods),
+                transitions={float(k): (num(v['F_snow']), num(v['F_degl']))
+                             for k, v in out.items()})
+
+
+def phase_examples(mods, dev, ice_albedo):
+    """The nine example scripts (``climatemodel_tpu_torch.examples``) on
+    the card, each at the configuration its ``main()`` runs (``MAIN``), in
+    its default dtype (float32), with the depth cuts of EXAMPLES_CUTS and
+    no figures (the card's machine has no matplotlib); the claims of the
+    CPU tests (tests/test_torch_walkthroughs.py,
+    test_torch_walkthrough_ice_albedo.py, test_torch_examples.py).  The
+    ice-albedo walkthrough, the longest, runs in a process of its own
+    (:func:`examples_ice_albedo`, started before the CLI phases); its
+    result comes from the future ``ice_albedo``.  Launch counts cover this
+    phase and that process: the grey, ice-albedo and staged-ramp marches
+    run K1."""
+    import numpy as np
+    import torch
+    from climatemodel_tpu_torch.examples import (
+        centa_presentation, radiation_script, real_gas_script,
+        shallow_script, staged_tau_ramp, walkthrough_arctic_amplification,
+        walkthrough_convective_adjustment, walkthrough_ice_albedo,
+        walkthrough_real_gas)
+    walls, claims, configs = {}, {}, {}
+    reset_counts(mods)
+
+    def run(mod, fn, **kw):
+        name = mod.__name__.rsplit('.', 1)[1]
+        cfg = {**mod.MAIN, **EXAMPLES_CUTS.get(name, {})}
+        configs[name] = {k: (list(v) if isinstance(v, tuple) else v)
+                         for k, v in cfg.items()}
+        t0 = time.perf_counter()
+        out = fn(**cfg, **kw, device=dev)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    quiet = dict(verbose=False)
+    out = run(walkthrough_convective_adjustment,
+              walkthrough_convective_adjustment.run_walkthrough,
+              save_png=False, **quiet)
+    claims['convective_adjustment'] = dict(
+        nz=int(out['world'].nz),
+        H_drift=abs(out['H_adj'] / out['H0'] - 1), beta=out['beta'],
+        T_surface=[float(out['T0'][0]), float(out['T_adj'][0])])
+    check(abs(out['H_adj'] / out['H0'] - 1) < 1e-5 and 0 < out['beta'] < 1
+          and out['T_adj'][0] < out['T0'][0],
+          f'convective walkthrough claims: {claims["convective_adjustment"]}')
+
+    world, data = run(staged_tau_ramp, staged_tau_ramp.run_staged_tau_ramp,
+                      save_gif=False, n_plot_frames=0)
+    T = np.asarray(world.T)
+    claims['staged_tau_ramp'] = dict(nz=int(world.nz), frames=len(data['t']),
+                                     T_surface=float(T[0, 0]))
+    check(world.tau_lw_func_args[1] == 6.0
+          and world.tau_sw_func_args[2] == 0.0 and np.isfinite(T).all()
+          and 150 < float(T[0, 0]) < 500 and len(data['t']) > 10
+          and (np.diff(np.asarray(data['t'], float)) >= 0).all()
+          and float(T[0, 0]) > float(np.asarray(data['T'][0])[0, 0]),
+          f'staged ramp claims: {claims["staged_tau_ramp"]}')
+
+    out = run(radiation_script, radiation_script.run_radiation_script,
+              save_figures=False, **quiet)
+    claims['radiation_script'] = dict(
+        nz=int(out['world'].nz),
+        sensitivity_rel_err=out['sensitivity_rel_err'],
+        ice_latitude=[float(x) for x in out['ice_latitude']])
+    check(out['sensitivity_rel_err'] < 0.1
+          and np.isfinite(np.asarray(out['world'].T)).all()
+          and out['ramp_world'].tau_sw_func_args[2] == 0.0,
+          f'radiation_script claims: {claims["radiation_script"]}')
+
+    out = run(walkthrough_real_gas, walkthrough_real_gas.run_walkthrough,
+              save_png=False, **quiet)
+    a = out['areas']
+    dco2, dch4 = a['CO2'][0] - a['CO2'][1], a['CH4'][0] - a['CH4'][1]
+    claims['real_gas'] = dict(dco2=dco2, dch4=dch4)
+    check(dco2 > 0 and dch4 > dco2 and a['CO2'][2] < a['CO2'][1] < a['CO2'][0],
+          f'real-gas walkthrough claims: {a}')
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = run(walkthrough_arctic_amplification,
+                  walkthrough_arctic_amplification.run_walkthrough,
+                  table_folder=os.path.join(tmp, 'arctic'), save_png=False,
+                  **quiet)
+        scales = walkthrough_arctic_amplification.H2O_SCALES
+        claims['arctic_amplification'] = out['amplification']
+        for mol in ('CO2', 'CH4'):
+            last = [-out['curves'][(mol, s)][-1]
+                    for s in sorted(scales, reverse=True)]
+            check(all(v > 0 for v in last) and last == sorted(last)
+                  and out['amplification'][mol] > 1.3,
+                  f'arctic walkthrough claims: {mol} {last} '
+                  f'{out["amplification"]}')
+        out = run(centa_presentation, centa_presentation.run_centa,
+                  table_folder=os.path.join(tmp, 'centa'), save_png=False,
+                  **quiet)
+    last = [-out['curves'][s][-1] for s in sorted(out['curves'],
+                                                  reverse=True)]
+    claims['centa'] = last
+    check(last == sorted(last) and last[-1] > 1.5 * last[0]
+          and np.isfinite(out['activity'][1]).all(),
+          f'centa claims: {last}')
+
+    out = run(real_gas_script, real_gas_script.run_real_gas_script,
+              save_figures=False, **quiet)
+    eq = out['earth_info']
+    claims['real_gas_script'] = dict(
+        nz=int(out['earth'].nz), equilibrium=bool(eq.equilibrium),
+        sweep_converged=int(out['sweep_converged'].sum()),
+        members=int(out['sweep_converged'].size))
+    check(bool(eq.equilibrium) and out['sweep_converged'].all()
+          and np.isfinite(np.asarray(out['gas'].T)).all(),
+          f'real_gas_script claims: {claims["real_gas_script"]}')
+
+    sw_world_, sw_data = run(shallow_script, shallow_script.run_shallow_script,
+                             save_png=False, **quiet)
+    h = sw_data['h'][-1]
+    nx = h.shape[0]
+    west, east = float(h[1:nx // 4, 1:-1].mean()), float(h[3 * nx // 4:-1,
+                                                          1:-1].mean())
+    claims['shallow_script'] = dict(grid=list(h.shape),
+                                    days=float(sw_data['t'][-1]) / 86400.0,
+                                    west=west, east=east)
+    check(np.isfinite(sw_data['h']).all() and west > east,
+          f'shallow_script claims: {claims["shallow_script"]}')
+
+    ice = ice_albedo.result()
+    trans = ice['transitions']
+    configs['walkthrough_ice_albedo'] = {
+        k: (list(v) if isinstance(v, tuple) else v)
+        for k, v in {**walkthrough_ice_albedo.MAIN,
+                     **EXAMPLES_CUTS['walkthrough_ice_albedo']}.items()}
+    walls['walkthrough_ice_albedo'] = ice['wall_s']
+    claims['ice_albedo'] = {str(k): v for k, v in trans.items()}
+    taus = sorted(trans)
+    # the faint-young-sun claim needs both sweeps (the script asserts it
+    # itself when it has them)
+    check(all(s is not None and d is not None and d > s
+              for s, d in trans.values())
+          and (len(taus) < 2 or trans[taus[1]][1] <= trans[taus[0]][1]),
+          f'ice-albedo walkthrough claims: {trans}')
+
+    launches = read_counts(mods)
+    for k, v in ice['launches'].items():
+        launches[k] += v
+    emit('examples', dtype='float32 (the scripts\' default)', configs=configs,
+         cuts=list(EXAMPLES_CUTS), walls_s=walls, claims=claims,
+         launches=launches, ice_albedo_process_launches=ice['launches'])
+    check(launches['lw_walk'] > 0, 'the examples launched no K1')
+    return launches
+
+
+#: the world of tests/test_differentiability.py:35-40, 5 plain steps
+GRAD_SW = dict(nx=18, ny=12, dx=100e3, dy=100e3, dt=60.0, f_0=1e-4,
+               beta=1.6e-11,
+               initial_info={'type': 'height_gaussian',
+                             'min_h_surface': 9750.0,
+                             'max_h_surface': 10750.0, 'x0': 0.0, 'y0': 0.0,
+                             'x_std': 400e3, 'y_std': 400e3,
+                             'add_noise': False})
+GRAD_REL = 1e-9
+
+
+def phase_grad(psw, cts, ccv, csl, dev):
+    """Reverse mode on the card: torch.autograd.grad through sw_simulate
+    (solver='richtmyer', f64) against the CPU within GRAD_REL of the
+    gradient's largest entry; then each CUDA wrapper, given a card input
+    that requires grad, raises RuntimeError and launches nothing, and under
+    torch.no_grad() the same call launches."""
+    import torch
+    f64 = torch.float64
+
+    def grad_on(device):
+        w = psw.ShallowWater(**GRAD_SW, dtype=f64, device=device)
+        kw = w._step_kwargs()
+        h_mean = w.state.h.mean()
+        h0 = w.state.h.clone().requires_grad_()
+        out = psw.sw_simulate(w.state.replace(h=h0), w.params, 5, **kw)
+        loss = ((out.h[1:-1, 1:-1] - h_mean) ** 2).sum() / h0.numel()
+        (g,) = torch.autograd.grad(loss, h0)
+        return kw['solver'], g.double().cpu()
+    solver, g_card = grad_on(dev)
+    _, g_cpu = grad_on(torch.device('cpu'))
+    rel = float((g_card - g_cpu).abs().max() / g_cpu.abs().max())
+    check(solver == 'richtmyer', f'grad world solver {solver}')
+    check(bool(torch.isfinite(g_card).all()) and rel <= GRAD_REL,
+          f'grad card vs CPU {rel:.3g} > {GRAD_REL}')
+
+    z = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)  # noqa
+    one = torch.ones((), dtype=torch.float32, device=dev)
+    calls = {
+        'lw_walk': (cts.lw_walk, cts.launch_counts, 'lw_walk',
+                    (z(4, 2) + 250, z(4, 2) + 0.1, z(2) + 240)),
+        'net_stats_walk': (cts.net_stats_walk, cts.launch_counts,
+                           'net_stats_walk',
+                           (z(2, 4) + 250, z(2, 4) + 0.1, z(2, 5), z(2, 5),
+                            z(2) + 240, z(2, 5), 2)),
+        'iso_fit': (ccv.iso_fit, ccv.launch_counts, 'iso_fit',
+                    (z(2, 4) + 300, z(4) + 1)),
+        'div_probe': (ccv.div_probe, ccv.launch_counts, 'div_probe',
+                      (z(4) + 1, z(4) + 3)),
+        'richtmyer_step': (csl.richtmyer_step, csl.launch_counts,
+                           'richtmyer_step_interior',
+                           (z(5, 5) + 100, z(5, 5), z(5, 5), z(3, 3),
+                            z(3, 3), None, None, one,
+                            torch.ones((), dtype=torch.bool, device=dev),
+                            one, one * 1e5, one * 1e5)),
+    }
+    refused = {}
+    for name, (fn, counts, key, args) in calls.items():
+        graded = (args[0].clone().requires_grad_(),) + tuple(args[1:])
+        before = counts[key]
+        try:
+            fn(*graded)
+            refused[name] = None
+        except RuntimeError as e:
+            refused[name] = str(e)
+        check(refused[name] is not None and 'no backward' in refused[name],
+              f'{name} under grad did not refuse: {refused[name]}')
+        check(counts[key] == before, f'{name} launched under grad')
+        with torch.no_grad():
+            fn(*graded)
+        torch.cuda.synchronize()
+        check(counts[key] == before + 1, f'{name} did not launch under '
+              f'no_grad')
+    emit('grad', world='tests/test_differentiability.py:35-40, 5 steps, '
+         "solver='richtmyer', f64", card_vs_cpu_rel=rel, bound=GRAD_REL,
+         refused={k: v.split(';')[0] for k, v in refused.items()})
 
 
 def kernel_label(name):
@@ -2639,15 +3064,30 @@ def main():
     phase_conv_profile(ens, conv_state)
     phase_ebm_profile(GreyGas, p_surface_earth)
     phase_rg_profile(prg, rg_main)
-    # the port's CLI, its checkpoints and the real-gas sensitivity (phases
-    # 6-8); their launches join their kernels'
-    with tempfile.TemporaryDirectory() as out_dir:
-        cli_launches, state_file = phase_cli(pcli, mods, csl, F_sun, out_dir)
-        ck_launches = phase_checkpoint(pcli, GreyGas, pcol, pck, psens,
-                                       state_file, mods, out_dir)
-    phase_sensitivity_rg(prg, psens, rg_main)
-    for k, v in ck_launches.items():
+    # the examples' ice-albedo walkthrough in a process of its own, beside
+    # the phases from here to the examples (every march is host-bound;
+    # nothing after this point is a kernel timing or a profile)
+    with ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context('spawn')) as pool:
+        ice_albedo = pool.submit(examples_ice_albedo)
+        # the port's CLI, its checkpoints and the real-gas sensitivity
+        # (phases 6-8); their launches join their kernels'
+        with tempfile.TemporaryDirectory() as out_dir:
+            cli_launches, state_file = phase_cli(pcli, mods, csl, F_sun,
+                                                 out_dir)
+            ck_launches = phase_checkpoint(pcli, GreyGas, pcol, pck, psens,
+                                           state_file, mods, out_dir)
+        phase_sensitivity_rg(prg, psens, rg_main)
+        for k, v in ck_launches.items():
+            cli_launches[k] += v
+        # the line-accumulation backends, the example scripts (their
+        # launches join their kernels') and reverse mode with the
+        # kernels' grad guard
+        phase_hitran_backends(ph, pet, dev)
+        ex_launches = phase_examples(mods, dev, ice_albedo)
+    for k, v in ex_launches.items():
         cli_launches[k] += v
+    phase_grad(psw, cts, ccv, csl, dev)
 
     def entry(name, source, replaces, n_launch, err, t, library_ms=None):
         return {'name': name, 'route': 'cuda',
@@ -2665,7 +3105,8 @@ def main():
               at_main['lw_walk'], times['lw_walk']),
         entry('net_stats_walk', 'two_stream.cu',
               'climatemodel_tpu/ops/pallas_two_stream.py:64 '
-              '(_net_stats_kernel, K3)', launches['net_stats_walk'],
+              '(_net_stats_kernel, K3)',
+              launches['net_stats_walk'] + cli_launches['net_stats_walk'],
               at_main['net_stats_walk'], times['net_stats_walk']),
         entry('iso_fit', 'convection.cu',
               'climatemodel_tpu/ops/pallas_isotonic.py:41 (_iso_kernel, K4)',

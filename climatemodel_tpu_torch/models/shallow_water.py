@@ -29,6 +29,8 @@ import torch
 
 from ..constants import g as g_earth
 from ..ops import stencils
+# apply_boundary_conditions is also this module's public name, as in the JAX
+# package's models/shallow_water.py:163 (tests/test_torch_shallow_water.py)
 from ..ops.stencils import apply_boundary_conditions, apply_boundary_conditions_
 from .column import TensorStruct
 

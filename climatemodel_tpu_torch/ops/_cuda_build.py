@@ -4,7 +4,8 @@
 a plain C interface, loaded with ``ctypes``.  The library lands in
 ``build/kernels/`` at the repository root (git-ignored), named by a hash of
 the source and the flags, so an edited source rebuilds and an unchanged one
-is loaded as it is.  Nothing is built when the module is imported: the first
+is loaded as it is (:func:`cached_path`, :func:`compile_to`; the native
+HITRAN library's ``g++`` build follows the same rule).  Nothing is built when the module is imported: the first
 call that needs a kernel builds it.
 """
 from __future__ import annotations
@@ -54,31 +55,48 @@ class BuildResult(NamedTuple):
     log: str
 
 
+def cached_path(build_dir: Path, stem: str, text: bytes,
+                flags) -> Path:
+    """Where the library built from ``text`` (the source and what it
+    includes) with ``flags`` lives: ``build_dir/lib<stem>_<hash>.so``, the
+    hash of both, so an edited source or flag set builds anew."""
+    digest = hashlib.sha256(text + ' '.join(flags).encode()).hexdigest()[:16]
+    return build_dir / f'lib{stem}_{digest}.so'
+
+
+def compile_to(cmd, out: Path) -> subprocess.CompletedProcess:
+    """Run the compiler command ``cmd`` with ``-o`` a temporary file beside
+    ``out``, and move that file to ``out`` only when the command succeeds
+    (atomically: a reader never sees half a file).  Returns the finished
+    process; its return code is the caller's to judge."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix='.so', dir=out.parent)
+    os.close(fd)
+    try:
+        proc = subprocess.run([*cmd, '-o', tmp], capture_output=True,
+                              text=True)
+        if proc.returncode == 0:
+            os.replace(tmp, out)
+        return proc
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
 def build(name: str) -> BuildResult:
     """Compile ``csrc/<name>.cu`` unless the library for this exact source,
     the headers beside it and these flags is already in ``build/kernels/``."""
     src = CSRC / f'{name}.cu'
     text = src.read_bytes() + b''.join(
         h.read_bytes() for h in sorted(CSRC.glob('*.cuh')))
-    digest = hashlib.sha256(text
-                            + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f'lib{name}_{digest}.so'
+    out = cached_path(BUILD_DIR, name, text, NVCC_FLAGS)
     if out.exists():
         return BuildResult(out, 0.0, '')
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
-    os.close(fd)
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, '-o', tmp, str(src)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f'nvcc failed on {src.name} '
-                               f'(exit {proc.returncode}):\n{proc.stderr}')
-        os.replace(tmp, out)           # atomic: a reader never sees half a file
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    proc = compile_to([find_nvcc(), *NVCC_FLAGS, str(src)], out)
+    if proc.returncode != 0:
+        raise RuntimeError(f'nvcc failed on {src.name} '
+                           f'(exit {proc.returncode}):\n{proc.stderr}')
     return BuildResult(out, time.perf_counter() - t0,
                        proc.stdout + proc.stderr)
 

@@ -12,7 +12,10 @@ Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on the current stream, raises if the
 launch failed, and adds one to its entry of :data:`launch_counts`.  They
 never compute on the CPU: the plain versions are in ``ops/convection.py``,
-whose dispatchers pick by device.
+whose dispatchers pick by device.  The kernels have no backward, so each
+wrapper refuses an input that requires grad while grad mode is on, naming
+the plain version to differentiate instead (``cuda_two_stream._refuse_grad``;
+JAX's kernel dispatchers have no reverse mode either).
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ import functools
 import torch
 
 from . import _cuda_build
-from .cuda_two_stream import _check, _raise_on
+from .cuda_two_stream import _check, _raise_on, _refuse_grad
 
 #: launches of each kernel since the last :func:`reset_launch_counts`
 launch_counts = {'iso_fit': 0, 'div_probe': 0}
@@ -64,6 +67,7 @@ def iso_fit(theta, v):
     :return: [C, n] fits, as ``convection.iso_rows_plain`` gives them on
         the CPU, bit for bit.
     """
+    _refuse_grad('iso_fit', 'convection.iso_rows_plain', theta, v)
     if theta.dtype not in _SUFFIX:
         raise ValueError(f'iso_fit: unsupported dtype {theta.dtype}')
     if theta.ndim != 2 or theta.shape[1] < 1:
@@ -90,6 +94,7 @@ def iso_fit(theta, v):
 
 def div_probe(a, b):
     """K7: (a / b, (C * a) / b, a / |b|) of two f32 tensors of one shape."""
+    _refuse_grad('div_probe', 'convection.div_probe_plain', a, b)
     if a.dtype != torch.float32:
         raise ValueError(f'div_probe: needs float32, got {a.dtype}')
     _check('a', a, a.shape, a)

@@ -10,7 +10,11 @@ The wrapper checks device, dtype, shape and strides, allocates its outputs
 with ``torch.empty`` (or writes into ``out``), launches on the current
 stream, raises if the launch failed, and adds one to its mode's entry of
 :data:`launch_counts`.  It never computes on the CPU: the plain versions and
-the dispatchers are in ``ops/stencils.py``.
+the dispatchers are in ``ops/stencils.py``.  The kernel has no backward, so
+the wrapper refuses an input that requires grad while grad mode is on,
+naming ``solver='richtmyer'`` (the plain stencils) as the route to
+differentiate (``cuda_two_stream._refuse_grad``; JAX's kernel dispatchers
+have no reverse mode either).
 
 The step is one launch: the kernel reduces max2 itself, through an
 accumulator and a block ticket that the wrapper allocates once per device
@@ -25,7 +29,7 @@ import functools
 import torch
 
 from . import _cuda_build
-from .cuda_two_stream import _check, _raise_on
+from .cuda_two_stream import _check, _raise_on, _refuse_grad
 
 #: launches of each mode since the last :func:`reset_launch_counts`:
 #: ``richtmyer_step_interior`` (K5, bx=None), ``richtmyer_step_bc`` (K6)
@@ -113,6 +117,8 @@ def richtmyer_step(h, u, v, f_cor, r_damp, dhb_dx, dhb_dy, dt, ok, g, dx, dy,
         sharing memory with h, u, v.
     :return: (h, u, v, max2), max2 a 0-d tensor.
     """
+    _refuse_grad('richtmyer_step', "solver='richtmyer'", h, u, v, f_cor,
+                 r_damp, dhb_dx, dhb_dy, dt, g, dx, dy, *(out or ()))
     if h.dtype not in _SUFFIX:
         raise ValueError(f'richtmyer_step: unsupported dtype {h.dtype}')
     if h.ndim != 2 or h.shape[0] < 3 or h.shape[1] < 3:

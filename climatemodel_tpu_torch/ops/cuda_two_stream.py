@@ -14,6 +14,13 @@ contiguity, allocates its outputs with ``torch.empty``, launches on the
 current stream, raises if the launch failed, and adds one to its entry of
 :data:`launch_counts`.  They never compute on the CPU: the plain twins live
 in ``ops/two_stream.py`` and the dispatchers there pick by device.
+
+The kernels have no backward: an output of ``torch.empty`` carries no graph.
+So each wrapper refuses an input that requires grad while grad mode is on
+(:func:`_refuse_grad`), naming the plain route to differentiate instead,
+rather than return a tensor that silently cuts the gradient.  JAX's kernel
+dispatchers have no reverse mode either
+(``tests/test_differentiability.py:58-60``).
 """
 from __future__ import annotations
 
@@ -71,6 +78,17 @@ def _check(name, x, shape, ref):
         raise ValueError(f'{name}: expected a contiguous tensor')
 
 
+def _refuse_grad(kernel, plain, *tensors):
+    """Raise if grad mode is on and an input of ``kernel`` requires grad:
+    the kernel has no backward, so its outputs would carry no graph."""
+    if torch.is_grad_enabled() and any(
+            isinstance(x, torch.Tensor) and x.requires_grad for x in tensors):
+        raise RuntimeError(
+            f'{kernel}: the CUDA kernel has no backward and an input '
+            f'requires grad; differentiate through {plain} instead (or '
+            f'detach the inputs, or run under torch.no_grad())')
+
+
 def _raise_on(err, kernel):
     if err != 0:
         raise RuntimeError(f'{kernel} launch failed: CUDA error {err}')
@@ -84,6 +102,7 @@ def lw_walk(T, dtau, up_flux_toa):
     :return: (up, down) [n+1, b] interface fluxes; the same arithmetic in
         the same order as ``two_stream.lw_flux_sequential``.
     """
+    _refuse_grad('lw_walk', 'two_stream.lw_flux_plain', T, dtau, up_flux_toa)
     if T.dtype not in _SUFFIX:
         raise ValueError(f'lw_walk: unsupported dtype {T.dtype}')
     n, b = T.shape
@@ -115,6 +134,8 @@ def net_stats_walk(T, dtau, up_sw, down_sw, up_toa, prev_net, L):
     :return: (net [b, n+1], top1 [b], top_hi [b], top_lo [b], absmax [b]) —
         as ``two_stream.net_stats_rows_plain``.
     """
+    _refuse_grad('net_stats_walk', 'two_stream.lw_flux_plain', T, dtau,
+                 up_sw, down_sw, up_toa, prev_net)
     if T.dtype not in _SUFFIX:
         raise ValueError(f'net_stats_walk: unsupported dtype {T.dtype}')
     b, n = T.shape

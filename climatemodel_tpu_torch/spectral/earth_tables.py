@@ -189,10 +189,13 @@ def fixture_folder():
     return FIXTURE_DIR
 
 
-def ensure_earth_tables(output_folder=None, overwrite=False, verbose=False):
+def ensure_earth_tables(output_folder=None, overwrite=False, verbose=False,
+                        backend='auto', device=None):
     """First-boot table generation: build any missing CO2/CH4/H2O/O3 lookup
     tables from the fabricated fixtures into ``output_folder`` (default
-    ``hitran.lookup_table_folder()``, the port's own).
+    ``hitran.lookup_table_folder()``, the port's own).  ``backend`` and
+    ``device`` pick the line accumulation
+    (:func:`hitran.get_absorption_coefficient`).
 
     A stamp file in the table folder records the fixture digest the tables
     were built from; when the fixtures change, previously-built tables are
@@ -249,7 +252,8 @@ def ensure_earth_tables(output_folder=None, overwrite=False, verbose=False):
                                 hitran.table_dnu)
         hitran.make_table(name, wavenumber_array=wavenumbers,
                           data_folder=data_folder, output_folder=out,
-                          overwrite=True, verbose=verbose)
+                          overwrite=True, verbose=verbose, backend=backend,
+                          device=device)
         built_map[name] = _crc(path)
         built.append(name)
     if kept_unstamped:

@@ -13,9 +13,12 @@ shipped folder.  Tables are written to the first of the two writable
 folders.  The four earth tables (CO2, CH4, H2O, O3) are built there from
 the shipped line fixtures at first use (``earth_tables.ensure_earth_tables``).
 
-The line accumulation is the host float64 windowed Lorentzian sum of the
-JAX package's ``backend='numpy'`` (``_accumulate_numpy``), in its order, so
-the tables are bit-equal to that backend's.
+The line accumulation has the JAX package's backends
+(:func:`get_absorption_coefficient`): the C++ library of
+:mod:`climatemodel_tpu_torch.native` by default, bit-equal to the JAX
+package's default-built tables wherever both build natively; PyTorch
+chunks with ``index_add_`` on the card where no compiler is present; the
+host NumPy chunks on request.
 """
 from __future__ import annotations
 
@@ -24,7 +27,9 @@ import os
 from pathlib import Path
 
 import numpy as np
+import torch
 
+from .. import native
 from ..constants import (Avogadro, h_planck, k_boltzmann, p_one_atmosphere,
                          p_surface_earth, p_toa_earth, speed_of_light)
 from .humidity import molecules
@@ -123,8 +128,9 @@ def gamma_extrapolate(p, T, gamma_reference, n):
 def s_extrapolate(T, s_reference, wave_number_line_center, n):
     """Line-strength temperature scaling (hitran.py:153-167; eq. 4.62)."""
     freq = 100.0 * wave_number_line_center * speed_of_light
+    exp = torch.exp if isinstance(freq, torch.Tensor) else np.exp
     return s_reference * (T / T_reference) ** n * \
-        np.exp(-(h_planck * freq / k_boltzmann) * (1 / T - 1 / T_reference))
+        exp(-(h_planck * freq / k_boltzmann) * (1 / T - 1 / T_reference))
 
 
 def lorentzian_profile(wave_number_array, wave_number_line_center, gamma):
@@ -139,13 +145,46 @@ def lorentzian_profile(wave_number_array, wave_number_line_center, gamma):
 # --------------------------------------------------------------------------
 
 def get_absorption_coefficient(p, T, wavenumber_array, molecule_data,
-                               n_line_widths=1000, chunk=512):
+                               n_line_widths=1000, chunk=512, backend='auto',
+                               device=None):
     """Absorption-coefficient grid [np x n_nu]: sum of all lines of a molecule.
 
     Each line contributes over a window of +-n_line_widths half-widths around
-    its centre (wavenumbers_near_line, hitran.py:182-199), accumulated on the
-    host in float64 in chunks of ``chunk`` lines: the JAX package's
-    ``backend='numpy'``, op for op."""
+    its centre (wavenumbers_near_line, hitran.py:182-199).  Backends (those
+    of the JAX package's ``get_absorption_coefficient``):
+
+      'native'  the C++/OpenMP accumulator
+                (:mod:`climatemodel_tpu_torch.native`), bit-equal to the JAX
+                package's ``backend='native'``
+      'torch'   the JAX package's ``backend='jax'`` in PyTorch (``'jax'`` is
+                accepted as an alias): padded chunks of ``chunk`` lines, a
+                window of W bins each, one ``index_add_`` per chunk into a
+                float64 [np, n_nu] accumulator on ``device`` (default
+                ``'cuda'``)
+      'numpy'   host float64 chunks with ``np.add.at``, op for op the JAX
+                package's ``backend='numpy'``
+      'auto'    'native' when the library is available (built at first use
+                with ``g++``), else 'torch' in float64 on ``device``
+
+    ``index_add_`` on a CUDA tensor adds with atomics, in no fixed order, so
+    the last bits of a table built on the card can vary from run to run;
+    'auto' therefore takes the device only when no compiler is present.  On
+    a CPU tensor the adds run in index order.
+
+    :return: [np, n_nu] float64 numpy array.
+    """
+    if backend == 'auto':
+        backend = 'native' if native.available() else 'torch'
+    if backend == 'jax':
+        backend = 'torch'
+    if backend not in ('native', 'torch', 'numpy'):
+        raise ValueError(f'unknown backend {backend!r}: expected auto, '
+                         f'native, torch (or jax) or numpy')
+    if backend == 'native':
+        hck = 100.0 * h_planck * speed_of_light / k_boltzmann
+        return native.accumulate_lines(p, T, wavenumber_array, molecule_data,
+                                       n_line_widths, p_reference, T_reference,
+                                       hck)
     p = np.asarray(p, dtype=np.float64)
     T = np.asarray(T, dtype=np.float64)
     nu_grid = np.asarray(wavenumber_array, dtype=np.float64)
@@ -169,9 +208,24 @@ def get_absorption_coefficient(p, T, wavenumber_array, molecule_data,
     mid = 0.5 * (nu_grid[:-1] + nu_grid[1:])
     centre = np.searchsorted(mid, nu_l, side='left')                  # [L]
 
+    if backend == 'numpy':
+        return _accumulate_numpy(p, T, nu_grid, nu_l, sw_l, gam_l, nair_l,
+                                 centre, n_w, W, chunk)
+    return _accumulate_torch(p, T, nu_grid, nu_l, sw_l, gam_l, nair_l,
+                             centre, n_w, W, chunk,
+                             torch.device(device or 'cuda'))
+
+
+def _accumulate_numpy(p, T, nu_grid, nu_l, sw_l, gam_l, nair_l, centre, n_w,
+                      W, chunk):
+    """Host float64 accumulation: the windowed Lorentzian sum with an
+    ``np.add.at`` scatter per chunk (the JAX package's ``_accumulate_numpy``,
+    op for op)."""
+    n_nu = nu_grid.size
     hck = 100.0 * h_planck * speed_of_light / k_boltzmann
     rel = np.arange(W) - W // 2
     acc = np.zeros((p.size, n_nu))
+    L = nu_l.size
     for s in range(0, L, chunk):
         e = min(s + chunk, L)
         nu_c, s_ref = nu_l[s:e], sw_l[s:e]
@@ -192,6 +246,55 @@ def get_absorption_coefficient(p, T, wavenumber_array, molecule_data,
         vals = strength[:, :, None] * shape * in_win[None]
         np.add.at(acc, (np.arange(p.size)[:, None, None], idx_c[None]), vals)
     return acc
+
+
+def _accumulate_torch(p, T, nu_grid, nu_l, sw_l, gam_l, nair_l, centre, n_w,
+                      W, chunk, device):
+    """The JAX package's ``backend='jax'`` (``_accumulate_jax``) in float64
+    PyTorch on ``device``: the lines padded to whole chunks with its fill
+    values (centre nu_grid[0], strength 0, width 1e-6, n_air 0, window -1),
+    then per chunk the [C, W] window mask, the line physics in its op order
+    (:func:`gamma_extrapolate`, :func:`s_extrapolate`,
+    :func:`lorentzian_profile`) and one ``index_add_`` of the [np, C * W]
+    values into the [np, n_nu] accumulator."""
+    f64 = torch.float64
+    n_nu = nu_grid.size
+    L = nu_l.size
+    n_chunks = -(-L // chunk)
+
+    def padded(a, fill, dtype=f64):
+        out = np.full((n_chunks * chunk,), fill, dtype=a.dtype)
+        out[:L] = a
+        return torch.as_tensor(out, dtype=dtype, device=device).view(
+            n_chunks, chunk)
+
+    nu_c_all = padded(nu_l, nu_grid[0])
+    s_ref_all = padded(sw_l, 0.0)
+    g_ref_all = padded(gam_l, 1e-6)
+    n_air_all = padded(nair_l, 0.0)
+    c_idx_all = padded(centre, 0, torch.int64)
+    half_all = padded(n_w, -1, torch.int64)
+    p_t = torch.as_tensor(p, dtype=f64, device=device)[:, None]      # [np, 1]
+    T_t = torch.as_tensor(T, dtype=f64, device=device)[:, None]
+    nu_grid_t = torch.as_tensor(nu_grid, dtype=f64, device=device)
+    rel = torch.arange(W, device=device) - W // 2                      # [W]
+    acc = torch.zeros((p.size, n_nu), dtype=f64, device=device)
+    for k in range(n_chunks):
+        nu_c, s_ref = nu_c_all[k], s_ref_all[k]
+        g_ref, n_air = g_ref_all[k], n_air_all[k]
+        idx = c_idx_all[k][:, None] + rel[None, :]                  # [C, W]
+        in_win = ((rel.abs()[None, :] <= half_all[k][:, None])
+                  & (idx >= 0) & (idx <= n_nu - 1))
+        idx_c = idx.clamp(0, n_nu - 1)
+        gamma = gamma_extrapolate(p_t, T_t, g_ref[None, :],
+                                  n_air[None, :])                   # [np, C]
+        strength = s_extrapolate(T_t, s_ref[None, :], nu_c[None, :],
+                                 n_air[None, :])                    # [np, C]
+        shape = lorentzian_profile(nu_grid_t[idx_c][None],          # [np, C, W]
+                                   nu_c[None, :, None], gamma[:, :, None])
+        vals = strength[:, :, None] * shape * in_win[None]
+        acc.index_add_(1, idx_c.reshape(-1), vals.reshape(p.size, -1))
+    return acc.cpu().numpy()
 
 
 # --------------------------------------------------------------------------
@@ -237,7 +340,9 @@ def load_molecule_data(molecule_name, data_folder=None):
     Accepts BOTH upstream formats, resolved per file:
 
     * ``<mol>.txt`` with a named-column header (the reference's genfromtxt
-      format, hitran.py:40-53), parsed with np.genfromtxt;
+      format, hitran.py:40-53) — parsed by the native C++ table parser when
+      it is available (1e5-row whitespace tables are the data-loader hot
+      path), else np.genfromtxt;
     * ``<mol>.par`` (or a headerless ``<mol>.txt``) in the native HITRAN
       160-character fixed-width record format — what hitranonline's bulk
       download serves, so real line lists drop in unmodified.
@@ -249,6 +354,11 @@ def load_molecule_data(molecule_name, data_folder=None):
         cols = _parse_par(par_file)
     elif os.path.isfile(molecule_file) and _looks_like_par(molecule_file):
         cols = _parse_par(molecule_file)
+    elif native.available():
+        with open(molecule_file) as f:
+            names = f.readline().split()
+        body = native.parse_numeric_table(molecule_file, skip_lines=1)
+        cols = {name: body[:, k] for k, name in enumerate(names)}
     else:
         data = np.genfromtxt(molecule_file, names=True)
         cols = {name: data[name] for name in data.dtype.names}
@@ -361,12 +471,13 @@ def load_from_cross_section_xsc(wavenumber_array, p_array, T_array,
 def make_table(molecule_name, p_array=table_p_values, T_array=table_T_values,
                dwavenumber=table_dnu, n_line_widths=1000,
                wavenumber_array=None, data_folder=None, output_folder=None,
-               overwrite=False, verbose=False):
+               overwrite=False, verbose=False, backend='auto', device=None):
     """Build and save a [np x nT x n_nu] absorption-coefficient lookup table.
 
     ``molecule_name`` may be a molecule string (requires a HITRAN .txt line
     file) or a dict of line arrays for fabricated/toy gases
-    (real_gas_script.py:16-25)."""
+    (real_gas_script.py:16-25).  ``backend`` and ``device`` pick the line
+    accumulation (:func:`get_absorption_coefficient`)."""
     if isinstance(molecule_name, dict):
         molecule_data = molecule_name
         molecule_name = 'custom'
@@ -401,7 +512,8 @@ def make_table(molecule_name, p_array=table_p_values, T_array=table_T_values,
                 print(f'Obtaining absorption coefficient {i + 1}/{T_array.size}')
             T = np.ones_like(p_array) * T_array[i]
             grid[:, i, :] += get_absorption_coefficient(
-                p_array, T, wavenumber_array, molecule_data, n_line_widths)
+                p_array, T, wavenumber_array, molecule_data, n_line_widths,
+                backend=backend, device=device)
     final['absorption_coef'] = grid
     _save_atomic(output_file, final)
     return final
@@ -452,9 +564,11 @@ def plot_absorption_coefficient(molecule_name, p_plot, T_plot, ax=None,
 # shipped toy gases (the reference's spectroscopy test fixtures)
 # --------------------------------------------------------------------------
 
-def make_single_line_table(output_folder=None, overwrite=True):
+def make_single_line_table(output_folder=None, overwrite=True,
+                           backend='auto', device=None):
     """Toy gas: one wide strong line at the Planck peak
-    (real_gas_script.py:16-25)."""
+    (real_gas_script.py:16-25).  ``backend`` and ``device`` as in
+    :func:`make_table`."""
     folder = output_folder or lookup_table_folder()
     final = table_path('single_line', folder)
     # the overwrite guard must protect the FINAL file: make_table writes the
@@ -467,7 +581,8 @@ def make_single_line_table(output_folder=None, overwrite=True):
                                                         dtype=float),
                        p_array=np.array([p_reference]),
                        T_array=np.array([T_reference]),
-                       output_folder=output_folder, overwrite=True)
+                       output_folder=output_folder, overwrite=True,
+                       backend=backend, device=device)
     os.replace(table_path('custom', folder), final)
     return table
 

@@ -79,6 +79,14 @@ def save_pytree(path, tree, backend='npz', async_save=False):
              **{f'leaf_{i}': _to_numpy(leaf) for i, leaf in enumerate(leaves)})
 
 
+def wait_for_saves():
+    """Block until every pending save has committed.  The port's npz saves
+    are synchronous (``save_pytree`` returns once the file is written), so
+    nothing is ever pending and this returns at once; it exists so that
+    callers of the JAX package's ``wait_for_saves`` (which waits for async
+    orbax saves) run unchanged."""
+
+
 def _like(a, template):
     """File leaf ``a`` in the template leaf's dtype, device and shape; a
     single-world leaf (a JAX ``GreyGas.state``) gains the batch axis of one

@@ -12,7 +12,13 @@ import climatemodel_tpu_torch
 PORT = pathlib.Path(climatemodel_tpu_torch.__file__).parent
 MODULES = sorted('climatemodel_tpu_torch.' + '.'.join(
     p.relative_to(PORT).with_suffix('').parts)
-    for p in PORT.rglob('*.py') if p.name != '__init__.py')
+    for p in PORT.rglob('*.py') if p.name != '__init__.py') + [
+        'climatemodel_tpu_torch.native']
+#: the JAX package's example scripts, each ported under its own name
+EXAMPLES = ('walkthrough_convective_adjustment', 'walkthrough_ice_albedo',
+            'staged_tau_ramp', 'radiation_script', 'walkthrough_real_gas',
+            'walkthrough_arctic_amplification', 'centa_presentation',
+            'real_gas_script', 'shallow_script')
 
 
 def test_port_imports_with_jax_blocked():
@@ -28,7 +34,7 @@ def test_port_imports_with_jax_blocked():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert len(MODULES) >= 15
-    assert {'climatemodel_tpu_torch.ops.convection',
+    assert ({'climatemodel_tpu_torch.ops.convection',
             'climatemodel_tpu_torch.ops.cuda_convection',
             'climatemodel_tpu_torch.ops.stencils',
             'climatemodel_tpu_torch.ops.cuda_stencils',
@@ -53,16 +59,25 @@ def test_port_imports_with_jax_blocked():
             'climatemodel_tpu_torch.parallel.collectives',
             'climatemodel_tpu_torch.parallel.halo',
             'climatemodel_tpu_torch.parallel.level_scan',
-            } <= set(MODULES)
+            'climatemodel_tpu_torch.native',
+            } | {f'climatemodel_tpu_torch.examples.{name}'
+                 for name in EXAMPLES}) <= set(MODULES)
 
 
 def test_port_never_loads_the_jax_packages_native_library():
     """The port reads the shipped spectroscopy data by path, but loads
-    nothing from the JAX package's ``native/`` folder."""
+    nothing from the JAX package's ``native/`` folder: its own native
+    library is built from the port's copy of the source into
+    ``build/native/`` (``tests/test_torch_native.py`` checks the loaded
+    libraries of a process that uses it)."""
+    from climatemodel_tpu_torch import native
     for p in PORT.rglob('*.py'):
         text = p.read_text()
-        for name in ("'native'", '"native"', '/native', '_hitran_native'):
+        for name in ('_hitran_native', "'climatemodel_tpu' / 'native'",
+                     'climatemodel_tpu/native/'):
             assert name not in text, (p, name)
+    assert native.SRC.parent == PORT / 'native'
+    assert native.BUILD_DIR == PORT.parent / 'build' / 'native'
 
 
 def test_port_sources_never_import_jax():

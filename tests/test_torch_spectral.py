@@ -2,14 +2,15 @@
 functions, the q and T profiles, the wavenumber bands, the HITRAN line
 pipeline and the earth-table build (``ops/planck.py``, ``spectral/``).
 
-Host NumPy float64 throughout, so everything but the native line
-accumulator is held bit-equal: the port's tables to the JAX package's
-``backend='numpy'`` ones, and within 1e-14 relative of its default (C++)
-backend.  The table-folder rules (look up, build at first use, never write
-into the JAX package's data folder) and the earth-table stamp rules
-(tests/test_earth_tables.py:55-96 for JAX) run in temporary folders.
+Host NumPy float64 throughout, so everything is held bit-equal: the
+port's line accumulation with ``backend='numpy'`` to the JAX package's
+``backend='numpy'``, and the port's default (its own build of the same C++
+accumulator) to the JAX package's default.  The other backends are held in
+``tests/test_torch_native.py``.  The table-folder rules (look up, build at
+first use, never write into the JAX package's data folder) and the
+earth-table stamp rules (tests/test_earth_tables.py:55-96 for JAX) run in
+temporary folders.
 """
-import functools
 import os
 
 import numpy as np
@@ -153,9 +154,10 @@ def test_line_physics_bit_equal():
 @pytest.mark.parametrize('name', EARTH)
 def test_absorption_coefficient_reduced_grid(name):
     """get_absorption_coefficient on a reduced grid (20 pressures, two
-    temperatures, the gas's own wavenumbers): bit-equal to JAX's
-    ``backend='numpy'`` and within 1e-14 relative of its default backend
-    (the C++ accumulator; measured below 5e-16)."""
+    temperatures, the gas's own wavenumbers): ``backend='numpy'`` bit-equal
+    to JAX's ``backend='numpy'``; the default (the C++ accumulator where
+    ``g++`` builds it) bit-equal to JAX's default, and within 1e-14
+    relative of the NumPy chunks (measured below 5e-16)."""
     lines = jh.update_molecule_data(jh.load_molecule_data(name),
                                     jh.get_wavenumber_array(
                                         jh.load_molecule_data(name)))
@@ -163,17 +165,31 @@ def test_absorption_coefficient_reduced_grid(name):
     p = np.logspace(np.log10(1.0132e5), np.log10(20.0), 20)
     for T in (250.0, 330.0):
         Tc = np.full(p.size, T)
-        got = ph.get_absorption_coefficient(p, Tc, nu, lines)
+        got = ph.get_absorption_coefficient(p, Tc, nu, lines,
+                                            backend='numpy')
         want = jh.get_absorption_coefficient(p, Tc, nu, lines,
                                              backend='numpy')
         np.testing.assert_array_equal(got, want)
-        dflt = jh.get_absorption_coefficient(p, Tc, nu, lines)
+        dflt = ph.get_absorption_coefficient(p, Tc, nu, lines)
+        np.testing.assert_array_equal(
+            dflt, jh.get_absorption_coefficient(p, Tc, nu, lines))
         assert np.abs(got - dflt).max() <= 1e-14 * np.abs(dflt).max()
+
+
+def _forcing_numpy(mod):
+    """``mod.get_absorption_coefficient`` with ``backend='numpy'`` whatever
+    backend its caller passes: the JAX package's table builders take no
+    ``backend`` (the port's do)."""
+    fn = mod.get_absorption_coefficient
+    return lambda *a, **k: fn(*a, **{**k, 'backend': 'numpy'})
 
 
 def test_cross_sections_and_toy_tables_bit_equal(tmp_path):
     """The .xsc loader (O3 with its symmetric extension, CFC12), and the
-    single_line / gray generators against the shipped tables."""
+    single_line / gray generators: with the default line accumulation
+    bit-equal to the JAX package's generators, and with ``backend='numpy'``
+    (the backend the shipped tables were built with) bit-equal to the
+    shipped tables."""
     wn = np.arange(0.0, 1405.0, 10.0)
     p = ph.table_p_values[:5]
     T = ph.table_T_values[:2]
@@ -183,14 +199,21 @@ def test_cross_sections_and_toy_tables_bit_equal(tmp_path):
         for x, y in zip(a, b):
             np.testing.assert_array_equal(x, y)
     out = str(tmp_path)
-    for make, name in ((ph.make_single_line_table, 'single_line'),
-                       (ph.make_gray_table, 'gray')):
+    for make, jmake, name in (
+            (ph.make_single_line_table, jh.make_single_line_table,
+             'single_line'),
+            (ph.make_gray_table, jh.make_gray_table, 'gray')):
         tab = make(output_folder=out)
+        jtab = jmake(output_folder=str(tmp_path / 'jax'))
+        for k in ('p', 'T', 'nu', 'absorption_coef'):
+            np.testing.assert_array_equal(tab[k], jtab[k], (name, k))
+        assert os.path.isfile(os.path.join(out, name + '.npy'))
+        numpy_kw = {'backend': 'numpy'} if name == 'single_line' else {}
+        tab = make(output_folder=str(tmp_path / 'numpy'), **numpy_kw)
         ship = np.load(os.path.join(ph.SHIPPED_TABLE_DIR, name + '.npy'),
                        allow_pickle=True).item()
         for k in ('p', 'T', 'nu', 'absorption_coef'):
             np.testing.assert_array_equal(tab[k], ship[k], (name, k))
-        assert os.path.isfile(os.path.join(out, name + '.npy'))
     with pytest.raises(ValueError, match='already exists'):
         ph.make_single_line_table(output_folder=out, overwrite=False)
 
@@ -224,19 +247,30 @@ def test_table_folders(tmp_path, monkeypatch):
 
 def test_earth_tables_bit_equal_to_jax_numpy_backend(tmp_path, monkeypatch):
     """ensure_earth_tables builds the four [200, 6, n_nu] tables from the
-    shipped fixtures, bit-equal to the JAX package's build with
-    ``backend='numpy'``; the fixture lines and digest match JAX's."""
+    shipped fixtures: with ``backend='numpy'`` bit-equal to the JAX
+    package's build with ``backend='numpy'``, and with the default backend
+    bit-equal to the JAX package's default build; the fixture lines and
+    digest match JAX's."""
     out, built = pet.ensure_earth_tables(str(tmp_path / 'port'))
     assert set(built) == set(EARTH)
-    monkeypatch.setattr(jh, 'get_absorption_coefficient', functools.partial(
-        jh.get_absorption_coefficient, backend='numpy'))
     jet.ensure_earth_tables(str(tmp_path / 'jax'))
-    for name in EARTH:
-        a = ph.load_table(name, out)
-        b = jh.load_table(name, str(tmp_path / 'jax'))
-        assert a['absorption_coef'].shape[:2] == (200, 6)
-        for k in ('p', 'T', 'nu', 'absorption_coef'):
-            np.testing.assert_array_equal(a[k], b[k], (name, k))
+    for backend in ('numpy', 'default'):
+        if backend == 'numpy':
+            out = str(tmp_path / 'port_numpy')
+            pet.ensure_earth_tables(out, backend='numpy')
+            monkeypatch.setattr(jh, 'get_absorption_coefficient',
+                                _forcing_numpy(jh))
+            jet.ensure_earth_tables(str(tmp_path / 'jax_numpy'))
+            jax_out = str(tmp_path / 'jax_numpy')
+            monkeypatch.undo()
+        else:
+            out, jax_out = str(tmp_path / 'port'), str(tmp_path / 'jax')
+        for name in EARTH:
+            a = ph.load_table(name, out)
+            b = jh.load_table(name, jax_out)
+            assert a['absorption_coef'].shape[:2] == (200, 6)
+            for k in ('p', 'T', 'nu', 'absorption_coef'):
+                np.testing.assert_array_equal(a[k], b[k], (backend, name, k))
         fp = pet.fabricate_molecule_lines(name)
         fj = jet.fabricate_molecule_lines(name)
         for k in fj:
