@@ -35,7 +35,8 @@ and to a NumPy row), the nine example scripts
 (``climatemodel_tpu_torch.examples``) at their tests' sizes with their
 claims, and reverse mode: a gradient through ``sw_simulate`` on the card
 against the CPU, and each kernel wrapper refusing an input that requires
-grad.
+grad.  Then the port's bench (``python -m climatemodel_tpu_torch.bench
+--smoke``) in a process of its own, its line and record checked.
 
     python3 chip_smoke.py
 
@@ -2132,6 +2133,77 @@ def phase_grad(psw, cts, ccv, csl, dev):
          refused={k: v.split(';')[0] for k, v in refused.items()})
 
 
+# the port's bench on its smoke list (bench.py:769-785), in a process of
+# its own: the limit of that process; the phase is budgeted at 60 s
+BENCH_SMOKE_TIMEOUT_S = 180
+# the kernel each smoke row must launch on the card (the shallow-water smoke
+# row steps the plain richtmyer, as bench.py's does)
+BENCH_SMOKE_KERNELS = {'grey_rce': 'net_stats_walk',
+                       'grey_rce_single_column': 'lw_walk'}
+BENCH_FLAGS = ('converged_fraction', 'equilibrium', 'timed_out', 'failed',
+               'nan')
+
+
+def phase_bench(pbench):
+    """``python -m climatemodel_tpu_torch.bench --smoke`` on the card, in a
+    process of its own (phase 10): rc 0, one last line under the bench's
+    limit saying platform cuda, no row in error or broken, every march's
+    flags reported and none failed or non-finite, each smoke row's kernel
+    launched.  Returns the kernels' launches in that process."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / 'bench.json'
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, '-m', 'climatemodel_tpu_torch.bench', '--smoke',
+             '--out', str(out)], cwd=ROOT, capture_output=True, text=True,
+            timeout=BENCH_SMOKE_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0, f'bench --smoke exited '
+              f'{proc.returncode}: {proc.stdout[-600:]} {proc.stderr[-600:]}')
+        lines = proc.stdout.strip().splitlines()
+        check(len(lines) > 0 and len(lines[-1]) < pbench.LINE_LIMIT,
+              'bench --smoke: no last line, or one over the limit')
+        rec = json.loads(lines[-1])
+        full = json.loads(out.read_text())['extra']
+    rows = {key: full.get(key) for key, _ in pbench.SMOKE_ROWS}
+    marches = {'grey_rce': [rows['grey_rce']],
+               'grey_rce_single_column': [
+                   (rows['grey_rce_single_column'] or {}).get(k) for k in
+                   ('per_step', 'check_every_8', 'check_every_8_dip')]}
+    launches = {}
+    for row in rows.values():
+        for k, v in (row or {}).get('launches', {}).items():
+            launches[k] = launches.get(k, 0) + v
+    emit('bench', command='python -m climatemodel_tpu_torch.bench --smoke',
+         wall_s=wall, value=rec['value'], vs_baseline=rec['vs_baseline'],
+         line_chars=len(lines[-1]), platform=rec['extra'].get('platform'),
+         config_wall_s=full['config_wall_s'], broken=full['broken'],
+         headlines={k: v for k, v in rec['extra'].items() if k in rows},
+         launches={k: (row or {}).get('launches') for k, row in rows.items()})
+    check(rec['extra'].get('platform') == 'cuda', 'bench --smoke did not run '
+          'on the card')
+    check(rec['vs_baseline'] is None and (rec['value'] or 0) > 0,
+          f'bench --smoke value {rec["value"]}, vs_baseline '
+          f'{rec["vs_baseline"]}')
+    for key, row in rows.items():
+        check(isinstance(row, dict) and 'error' not in row,
+              f'bench --smoke row {key}: {row}')
+    check(full['broken'] == [], f'bench --smoke broke {full["broken"]}')
+    for key, runs in marches.items():
+        for r in runs:
+            check(isinstance(r, dict) and all(f in r for f in BENCH_FLAGS),
+                  f'bench --smoke row {key}: flags missing in {r}')
+            check(not r['nan'] and not r['failed'],
+                  f'bench --smoke row {key}: a march failed: {r}')
+    sw = rows['shallow_water']
+    check(sw.get('ok') is True and sw.get('no_wind_ok') is True,
+          f'bench --smoke shallow water ok: {sw}')
+    for key, kernel in BENCH_SMOKE_KERNELS.items():
+        check(rows[key]['launches'].get(kernel, 0) > 0,
+              f'bench --smoke row {key} never launched {kernel}')
+    return launches
+
+
 def kernel_label(name):
     """A profiler kernel name without its namespaces and launch-bound
     template arguments, cut to 120 characters: enough to tell one
@@ -2986,6 +3058,7 @@ def main():
               f'to {Path(__file__).name}', file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    from climatemodel_tpu_torch import bench as pbench
     from climatemodel_tpu_torch import cli as pcli
     from climatemodel_tpu_torch.constants import F_sun, Omega, R_earth, \
         p_surface_earth
@@ -3088,6 +3161,10 @@ def main():
     for k, v in ex_launches.items():
         cli_launches[k] += v
     phase_grad(psw, cts, ccv, csl, dev)
+    # the port's bench on its smoke rows, in a process of its own; its
+    # launches join their kernels'
+    for k, v in phase_bench(pbench).items():
+        cli_launches[k] = cli_launches.get(k, 0) + v
 
     def entry(name, source, replaces, n_launch, err, t, library_ms=None):
         return {'name': name, 'route': 'cuda',

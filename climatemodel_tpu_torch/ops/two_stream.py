@@ -40,7 +40,7 @@ def _source(T):
     return sigma * (sq * sq)
 
 
-def lw_flux_sequential(T, dtau, up_flux_toa):
+def lw_flux_sequential(T, dtau, up_flux_toa, surface_first=True):
     """Plain PyTorch twin of the ``lw_walk`` kernel (K1/K2): the
     reference's sequential loop, surface-first.
 
@@ -50,10 +50,20 @@ def lw_flux_sequential(T, dtau, up_flux_toa):
     multiply-add).
 
     :param T, dtau: [nz-1, ...] cell temperatures and |optical depth
-        differences| (index 0 = surface).
+        differences| (index 0 = surface; with ``surface_first=False``
+        index 0 = TOA, the real-gas orientation).
     :param up_flux_toa: [...] TOA upward boundary condition.
-    :return: (up, down) [nz, ...] interface fluxes.
+    :param surface_first: False walks the TOA-first column: the inputs are
+        flipped on axis 0, walked surface-first and the fluxes flipped
+        back, as the JAX package's scan does.
+    :return: (up, down) [nz, ...] interface fluxes, in the inputs'
+        orientation.
     """
+    if not surface_first:
+        up, down = lw_flux_sequential(torch.flip(T, (0,)),
+                                      torch.flip(torch.broadcast_to(
+                                          dtau, T.shape), (0,)), up_flux_toa)
+        return torch.flip(up, (0,)), torch.flip(down, (0,))
     dtau = torch.broadcast_to(dtau, T.shape)
     src = _source(T)
     # both streams walk together as one [2, ...] row: stream 0 up, 1 down

@@ -49,6 +49,7 @@ def test_port_imports_with_jax_blocked():
             'climatemodel_tpu_torch.spectral.humidity',
             'climatemodel_tpu_torch.spectral.temperature_profiles',
             'climatemodel_tpu_torch.cli',
+            'climatemodel_tpu_torch.bench',
             'climatemodel_tpu_torch.__main__',
             'climatemodel_tpu_torch.diagnostics.sensitivity',
             'climatemodel_tpu_torch.diagnostics.olr',

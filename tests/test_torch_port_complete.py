@@ -63,6 +63,64 @@ def test_every_jax_module_name_has_a_port_counterpart():
     assert not missing, missing
 
 
+#: JAX parameters the port's counterpart does not take, and why
+UNPORTED_PARAMS = {
+    # nx, ny size the padded frame of the TPU kernel's blocks; the CUDA
+    # kernel reads the grid from the state's own shape
+    ('models/shallow_water.py', 'sw_step_frame'): {'nx', 'ny'},
+}
+
+
+def _public_callables(tree):
+    """(qualified name, ast.FunctionDef) of every public top-level function
+    and every public method (``__init__`` included) of a public class;
+    properties are attributes, not calls, and are left out."""
+    for node in tree.body:
+        if isinstance(node, ast.FunctionDef) and not node.name.startswith('_'):
+            yield node.name, node
+        elif isinstance(node, ast.ClassDef) and not node.name.startswith('_'):
+            for sub in node.body:
+                if not isinstance(sub, ast.FunctionDef) or (
+                        sub.name.startswith('_') and sub.name != '__init__'):
+                    continue
+                if any(getattr(d, 'id', None) == 'property'
+                       or getattr(d, 'attr', None) == 'setter'
+                       for d in sub.decorator_list):
+                    continue
+                yield f'{node.name}.{sub.name}', sub
+
+
+def _param_names(fn):
+    a = fn.args
+    return {x.arg for x in a.posonlyargs + a.args + a.kwonlyargs} | {
+        x.arg for x in (a.vararg, a.kwarg) if x is not None}
+
+
+def test_every_jax_parameter_name_is_accepted_by_the_port():
+    """Every parameter name of every public JAX function and method is a
+    parameter of its port counterpart (which may add its own, such as
+    ``device``), or the counterpart takes ``**kwargs``; both read by
+    ``ast``.  A JAX caller's keyword arguments then bind in the port."""
+    missing = {}
+    for path in sorted(JAX_PKG.rglob('*.py')):
+        rel = path.relative_to(JAX_PKG).as_posix()
+        if rel in UNPORTED:
+            continue
+        port_path = ROOT / 'climatemodel_tpu_torch' / rel
+        port = dict(_public_callables(ast.parse(port_path.read_text())))
+        for name, fn in _public_callables(ast.parse(path.read_text())):
+            theirs = port.get(name)
+            if theirs is None:        # a name bound another way (checked
+                continue              # by the name test above)
+            if theirs.args.kwarg is not None:
+                continue
+            gone = (_param_names(fn) - _param_names(theirs) - {'self', 'cls'}
+                    - UNPORTED_PARAMS.get((rel, name), set()))
+            if gone:
+                missing[f'{rel}:{name}'] = sorted(gone)
+    assert not missing, missing
+
+
 def test_every_example_function_has_a_port_counterpart():
     for name in EXAMPLES:
         port = importlib.import_module(f'climatemodel_tpu_torch.examples.'

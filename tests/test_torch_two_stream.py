@@ -99,6 +99,39 @@ def test_lw_flux_single_column_matches_jax(n, dtype):
     assert torch.equal(up_b, up_p) and torch.equal(dn_b, dn_p)
 
 
+@pytest.mark.parametrize('dtype', [np.float64, np.float32])
+@pytest.mark.parametrize('surface_first', [True, False])
+def test_lw_flux_sequential_orientations_match_jax(surface_first, dtype):
+    """``lw_flux_sequential(..., surface_first=)`` against JAX's in both
+    orientations; the TOA-first walk is the surface-first one on the
+    flipped column, and the default stays surface-first."""
+    rng = np.random.default_rng(41 + surface_first)
+    T, dtau, toa = _walk_inputs(rng, 37, 6, dtype)
+    up_p, dn_p = pts.lw_flux_sequential(
+        torch.from_numpy(T), torch.from_numpy(dtau), torch.from_numpy(toa),
+        surface_first=surface_first)
+    assert up_p.shape == (38, 6) and up_p.dtype == T_DTYPE[dtype]
+    up_j, dn_j = jts.lw_flux_sequential(jnp.asarray(T), jnp.asarray(dtau),
+                                        jnp.asarray(toa),
+                                        surface_first=surface_first)
+    assert _rel_err(up_p, up_j) <= REL_BOUND[dtype]
+    assert _rel_err(dn_p, dn_j) <= REL_BOUND[dtype]
+    # the boundary values sit at the TOA end of the given orientation
+    toa_row = -1 if surface_first else 0
+    assert torch.equal(up_p[toa_row], torch.from_numpy(toa))
+    assert not dn_p[toa_row].any()
+    flipped = pts.lw_flux_sequential(
+        torch.from_numpy(T[::-1].copy()), torch.from_numpy(dtau[::-1].copy()),
+        torch.from_numpy(toa), surface_first=not surface_first)
+    assert torch.equal(flipped[0].flip(0), up_p)
+    assert torch.equal(flipped[1].flip(0), dn_p)
+    if surface_first:
+        default = pts.lw_flux_sequential(torch.from_numpy(T),
+                                         torch.from_numpy(dtau),
+                                         torch.from_numpy(toa))
+        assert torch.equal(default[0], up_p) and torch.equal(default[1], dn_p)
+
+
 def _stats_inputs(rng, n, b, dtype=np.float32):
     T, dtau, toa = _walk_inputs(rng, n, b, dtype)
     usw = (100 * rng.random((n + 1, b))).astype(dtype)
