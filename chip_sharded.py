@@ -2,8 +2,12 @@
 """The sharded phases of ``chip_smoke.py`` with one shard on each card:
 ``sharded_sw`` (bench_sw's El Nino and wind-free worlds at 2050 x 1026 on
 the fused kernel's 'given' mode, the halo rows and the collectives crossing
-cards), ``sharded_2d`` and ``level_scan``, on a mesh of every CUDA device,
-against the unsharded runs on the first card.  Needs exactly
+cards), ``sharded_2d`` and ``level_scan``, and the member- and band-sharded
+compositions of ``parallel/ensemble.py`` (``dp_grey`` and ``dp_conv``: K3,
+and K4 on isotonic, launched on every card, counted per card; ``rg_tp``,
+``rg_dp``, ``rg_dp_tp``) and the dp x sp shallow-water ensemble
+(``sw_dp_sp``), on a mesh of every CUDA device, against the unsharded runs
+on the first card.  Needs exactly
 ``chip_smoke.SHARDS`` (4) CUDA devices and ``nvcc``; imports no JAX.
 
     python3 chip_sharded.py
@@ -42,14 +46,21 @@ def main():
         return 2
     from climatemodel_tpu_torch.constants import Omega, R_earth, \
         p_surface_earth
+    from climatemodel_tpu_torch.models import ensemble as ens
+    from climatemodel_tpu_torch.models import real_gas as prg
     from climatemodel_tpu_torch.models import shallow_water as psw
     from climatemodel_tpu_torch.models.grey import GreyGas
+    from climatemodel_tpu_torch.ops import convection as pc
+    from climatemodel_tpu_torch.ops import cuda_convection as ccv
     from climatemodel_tpu_torch.ops import cuda_stencils as csl
     from climatemodel_tpu_torch.ops import cuda_two_stream as cts
     from climatemodel_tpu_torch.ops import two_stream as ts
+    from climatemodel_tpu_torch.parallel import ensemble as pens
     from climatemodel_tpu_torch.parallel import halo as phalo
     from climatemodel_tpu_torch.parallel import level_scan as pls
     from climatemodel_tpu_torch.parallel import mesh as pmesh
+    from climatemodel_tpu_torch.spectral import earth_tables as pet
+    from climatemodel_tpu_torch.spectral import hitran as ph
 
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
@@ -62,12 +73,26 @@ def main():
     cs.build_all()
     csl.library()
     cts.library()
+    ccv.library()
+    torch.backends.cuda.matmul.allow_tf32 = False
     k6 = cs.phase_sharded_sw(psw, phalo, pmesh, Omega, R_earth, csl, dev,
                              devices)
     cs.phase_sharded_2d(psw, phalo, pmesh, Omega, R_earth, csl, dev, devices)
     cs.phase_level_scan(GreyGas, p_surface_earth, pls, pmesh, ts, dev,
                         devices)
-    cs.emit('sharded_launches', richtmyer_step_bc=k6)
+    mods = (cts, ccv)
+    dp_grey = cs.phase_dp_grey(ens, pens, pmesh, GreyGas, p_surface_earth,
+                               mods, cts, ts, dev, devices)
+    dp_conv = cs.phase_dp_conv(ens, pens, pmesh, GreyGas, p_surface_earth,
+                               mods, ccv, pc, dev, devices)
+    cs.phase_rg_tables(pet, ph)
+    cs.phase_rg_tp(prg, pens, pmesh, dev, devices)
+    cs.phase_rg_dp(prg, ens, pens, pmesh, dev, devices)
+    cs.phase_sw_dp_sp(psw, phalo, pmesh, Omega, R_earth, csl, dev, devices)
+    cs.emit('sharded_launches', richtmyer_step_bc=k6,
+            net_stats_walk=dp_grey['k3']
+            + dp_conv['launches']['net_stats_walk'],
+            iso_fit=dp_conv['launches']['iso_fit'])
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -28,7 +28,13 @@ column's real-gas sensitivity is held to the CPU's.  The sharded worlds
 (``parallel/``) run on 4 shards of the card: bench_sw's worlds through
 ``ShardedShallowWater`` (each shard on the fused kernel's 'given' mode;
 the wind-free world bit-equal to the unsharded run), the 2-D
-decomposition and the level-sharded flux scan.  Last, the line-accumulation
+decomposition and the level-sharded flux scan; then the member- and
+band-sharded compositions (``parallel/ensemble.py``): the grey headline and
+the convective ensemble with their members on the shards (K3, and K4 on
+isotonic, on every shard), the real-gas net flux with its bands on the
+shards, the real-gas ensemble with its members on them and on a (2, 2)
+mesh with the bands on its other axis, and bench_sw's El Nino world as an
+ensemble of 4 members on a (2, 2) mesh.  Last, the line-accumulation
 backends of ``spectral/hitran`` (the four earth tables and a 1e5-line list
 built with the C++ library and with PyTorch on the card, held to each other
 and to a NumPy row), the nine example scripts
@@ -1318,6 +1324,7 @@ def phase_rg_hires(prg):
     for key in ('f32', 'bf16_cache'):
         check(not res[key]['failed'] and not res[key]['nan']
               and res[key]['finite'], f'hires march ({key}) failed')
+    return gas
 
 
 def rg_lockstep_card_vs_cpu(prg, pcol, gas, state, steps, t_end, ft,
@@ -2761,6 +2768,457 @@ def phase_level_scan(GreyGas, p_surface_earth, pls, pmesh, ts, dev,
               f'level scan vs {name}: {res[f"rel_err_vs_{name}"]}')
 
 
+# parallel/ensemble.py and the dp x sp step (phases 3j-3o) on SHARDS shards
+# of the card (chip_sharded.py: one shard a card), each against the
+# unsharded run in the same phase.  Bounds, relative to the largest |value|
+# (the JAX package's multi-chip dry run, ``__graft_entry__.py``): a dp march
+# bit-equal, or 90% of the members at the unsharded step and those within
+# DP_REL_BOUND; the band-sharded net flux within RG_TP_REL_BOUND; the real-
+# gas marches over the dry run's RG_WINDOW steps within RG_DP_REL_BOUND (dp)
+# and RG_DP_TP_REL_BOUND (dp x tp: the psum reassociates the band sum) on
+# the active cells (tau > 0.03 at some wavenumber, as RG_CARD_CPU holds the
+# card to the CPU); dp x sp within the sharded El Nino bounds.
+DP_REL_BOUND = 1e-5
+RG_TP_REL_BOUND = 1e-5
+RG_DP_REL_BOUND = 1e-5
+RG_DP_TP_REL_BOUND = 1e-4
+RG_WINDOW = 30
+DP_SW = dict(members=4, mesh=(2, SHARDS // 2), steps=20, dh=1e-3)
+
+
+def device_counts(mods, kernel):
+    """Launches of ``kernel`` per device since the last reset."""
+    out = {}
+    for m in mods:
+        for (k, d), n in m.device_launch_counts.items():
+            if k == kernel:
+                out[d] = out.get(d, 0) + n
+    return out
+
+
+def per_device(devices, counts):
+    """Sum per-shard counts over the shards of each device."""
+    out = {}
+    for d, n in zip(devices, counts):
+        out[str(d)] = out.get(str(d), 0) + n
+    return out
+
+
+def march_compare(fs, info, ref, ref_info):
+    """Bit-equality and the dp bound's figures of a sharded march against
+    the unsharded one."""
+    import numpy as np
+    import torch
+    bit_equal = {
+        'T': bool(torch.equal(fs.T, ref.T)),
+        't': bool(torch.equal(fs.t, ref.t)),
+        'info': all(bool(torch.equal(a, b)) for a, b in zip(info, ref_info))}
+    same = (info.steps == ref_info.steps).cpu().numpy()
+    T, T_ref = fs.T.double().cpu().numpy(), ref.T.double().cpu().numpy()
+    scale = np.abs(T_ref).max()
+    err_all = float(np.abs(T - T_ref).max() / scale)
+    err_same = (float(np.abs(T[same] - T_ref[same]).max() / scale)
+                if same.any() else None)
+    return dict(bit_equal=bit_equal, step_agreement=float(same.mean()),
+                max_rel_err_step_matched=err_same, max_rel_err=err_all)
+
+
+def dp_ok(cmp):
+    return all(cmp['bit_equal'].values()) or (
+        cmp['step_agreement'] >= 0.9
+        and cmp['max_rel_err_step_matched'] < DP_REL_BOUND)
+
+
+def timed(fn):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_dp_grey(ens, pens, pmesh, GreyGas, p_surface_earth, mods, cts, ts,
+                  dev, devices=None):
+    """bench_grey's headline (4096 members, nz 60, F 800-1600 W/m^2) with
+    the members on 'data' = SHARDS (phase 3j): the unsharded march, then
+    ``grey_evolve_ensemble_sharded``, then each one's f64 finish
+    (``grey_finish_unconverged_f64`` and its sharded form).  K3 launches
+    once per shard and iteration on the shard's device; the sharded march
+    is held to the unsharded one (bit-equal expected: K3 is a warp a
+    member).  Then K3 timed at a shard's 59 x 1024 against its plain twin,
+    and held to it."""
+    import numpy as np
+    import torch
+    devices = devices or [dev] * SHARDS
+    mesh = pmesh.make_mesh(('data',), devices=devices)
+    world = build_world(GreyGas, p_surface_earth, HEADLINE['nz'], dev)
+    F = np.linspace(*HEADLINE['F'], HEADLINE['members'])
+    states, forcings, p_int, p_c = ens.grey_ensemble(world, F)
+    ft, kw = HEADLINE['flux_thresh'], dict(max_steps=HEADLINE['max_steps'])
+    (ref, ref_info), wall_1 = timed(lambda: ens.grey_evolve_ensemble(
+        states, forcings, p_int, p_c, ft, **kw))
+    reset_counts(mods)
+    tel = {}
+    (fs, info), wall = timed(lambda: pens.grey_evolve_ensemble_sharded(
+        mesh, states, forcings, p_int, p_c, ft, telemetry=tel, **kw))
+    k3_dev = device_counts(mods, 'net_stats_walk')
+    want_dev = per_device(devices, tel['iterations'])
+    (fin_1, fin_info_1, finished_1), f64_wall_1 = timed(
+        lambda: ens.grey_finish_unconverged_f64(ref, ref_info, forcings,
+                                                p_int, p_c, ft, **kw))
+    reset_counts(mods)
+    (fin, fin_info, finished), f64_wall = timed(
+        lambda: pens.grey_finish_unconverged_f64_sharded(
+            mesh, fs, info, forcings, p_int, p_c, ft, **kw))
+    k3_f64_dev = device_counts(mods, 'net_stats_walk')
+    cmp = march_compare(fs, info, ref, ref_info)
+    days = float(fs.t.double().sum()) / 86400.0
+    days_1 = float(ref.t.double().sum()) / 86400.0
+    # K3 at a shard's width against its plain twin, timed
+    gen = torch.Generator().manual_seed(13)
+    n, b = HEADLINE['nz'] - 1, HEADLINE['members'] // SHARDS
+    args = stats_rows(gen, n, b, torch.float32, dev)
+    L = ts.topk_depth(n + 1, 95)
+    got, want = cts.net_stats_walk(*args, L), ts.net_stats_rows_plain(*args, L)
+    ulp = max(ulp_diff(g, w) for g, w in zip(got, want))
+    k3_time = dict(timed_pair(lambda: cts.net_stats_walk(*args, L),
+                              lambda: ts.net_stats_rows_plain(*args, L)),
+                   n=n, b=b, L=L, max_ulp=ulp,
+                   bound=bound(4 * (2 * n * b + 3 * (n + 1) * b + b
+                                    + (n + 1) * b + 4 * b),
+                               13 * n * b + (n + 1) * b * (7 + L)))
+    res = dict(members=HEADLINE['members'], nz=world.nz, shards=mesh.size,
+               devices=[str(d) for d in devices], wall_s=wall,
+               unsharded_wall_s=wall_1, model_days_per_sec=days / wall,
+               unsharded_model_days_per_sec=days_1 / wall_1,
+               sharded_over_unsharded=days / wall / (days_1 / wall_1),
+               iterations=tel['iterations'],
+               unsharded_iterations=int(ref_info.steps.max()),
+               ms_per_iteration=1e3 * wall / max(tel['iterations']),
+               total_steps=int(info.steps.sum()),
+               launches_k3_per_device=k3_dev,
+               iterations_per_device=want_dev,
+               launches_k3_f64_finish_per_device=k3_f64_dev,
+               converged_fraction_f32=float(info.equilibrium.double().mean()),
+               unsharded_converged_fraction_f32=float(
+                   ref_info.equilibrium.double().mean()),
+               f64_wall_s=f64_wall, unsharded_f64_wall_s=f64_wall_1,
+               f64_finished=int(len(finished)),
+               converged_fraction=float(fin_info.equilibrium.double().mean()),
+               unsharded_converged_fraction=float(
+                   fin_info_1.equilibrium.double().mean()),
+               finished_equal=bool(np.array_equal(finished, finished_1)),
+               finish_bit_equal=bool(torch.equal(fin.T, fin_1.T)),
+               bound_rel=DP_REL_BOUND, k3_at_shard=k3_time, **cmp)
+    emit('dp_grey', **res)
+    check(k3_dev == want_dev, f'K3 launches per device {k3_dev} != the '
+          f'shards\' iterations {want_dev}')
+    check(set(k3_f64_dev) <= {str(d) for d in devices},
+          f'f64 finish launched K3 off the mesh: {k3_f64_dev}')
+    check(dp_ok(cmp), f'grey dp vs unsharded: {cmp}')
+    check(res['converged_fraction'] == 1.0
+          and res['unsharded_converged_fraction'] == 1.0,
+          'grey dp: not every member converged after the f64 finish')
+    check(int(info.nan.sum()) == 0 and int(info.failed.sum()) == 0,
+          'grey dp: nan or failed members')
+    check(ulp == 0, f'K3 at {n} x {b}: {ulp} ulp from its twin')
+    return dict(k3=sum(k3_dev.values()) + sum(k3_f64_dev.values()),
+                times=k3_time)
+
+
+def phase_dp_conv(ens, pens, pmesh, GreyGas, p_surface_earth, mods, ccv, pc,
+                  dev, devices=None):
+    """bench_rce_conv_ensemble (512 members, nz 150, F 1200-1500 W/m^2,
+    flux_thresh 0.1) with the members on 'data' = SHARDS, each adjustment
+    method (phase 3k): the unsharded march, then the sharded one.  K3
+    launches once per shard and iteration, K4 too on isotonic and never on
+    reference.  isotonic is held bit-equal (or the dp bound), reference to
+    the dp bound (its enthalpy sums ``(w * T).sum(dim=1)`` round by the
+    number of rows).  Then K4 timed at a shard's 128 x 149 against its
+    plain version, and held to it on CPU copies."""
+    import numpy as np
+    import torch
+    devices = devices or [dev] * SHARDS
+    mesh = pmesh.make_mesh(('data',), devices=devices)
+    world = GreyGas(nz=CONV['nz'], ny=1, device=dev,
+                    **thermosphere_kwargs(p_surface_earth))
+    F = np.linspace(*CONV['F'], CONV['members'])
+    states, forcings, p_int, p_c = ens.grey_ensemble(world, F)
+    ft = CONV['flux_thresh']
+    out, launches = {}, {'net_stats_walk': 0, 'iso_fit': 0}
+    for method in METHODS:
+        kw = dict(convective_adjust=True, conv_method=method,
+                  max_steps=CONV['max_steps'])
+        (ref, ref_info), wall_1 = timed(lambda: ens.grey_evolve_ensemble(
+            states, forcings, p_int, p_c, ft, **kw))
+        reset_counts(mods)
+        tel = {}
+        (fs, info), wall = timed(lambda: pens.grey_evolve_ensemble_sharded(
+            mesh, states, forcings, p_int, p_c, ft, telemetry=tel, **kw))
+        k3_dev = device_counts(mods, 'net_stats_walk')
+        k4_dev = device_counts(mods, 'iso_fit')
+        want_dev = per_device(devices, tel['iterations'])
+        for k in launches:
+            launches[k] += read_counts(mods)[k]
+        days = float(fs.t.double().sum()) / 86400.0
+        days_1 = float(ref.t.double().sum()) / 86400.0
+        cmp = march_compare(fs, info, ref, ref_info)
+        r = dict(wall_s=wall, unsharded_wall_s=wall_1,
+                 model_days_per_sec=days / wall,
+                 unsharded_model_days_per_sec=days_1 / wall_1,
+                 sharded_over_unsharded=days / wall / (days_1 / wall_1),
+                 iterations=tel['iterations'],
+                 unsharded_iterations=int(ref_info.steps.max()),
+                 launches_k3_per_device=k3_dev,
+                 launches_k4_per_device=k4_dev,
+                 iterations_per_device=want_dev,
+                 converged_fraction_f32=float(
+                     info.equilibrium.double().mean()),
+                 unsharded_converged_fraction_f32=float(
+                     ref_info.equilibrium.double().mean()), **cmp)
+        out[method] = r
+        check(k3_dev == want_dev, f'{method}: K3 launches per device '
+              f'{k3_dev} != the shards\' iterations {want_dev}')
+        check(k4_dev == (want_dev if method == 'isotonic' else {}),
+              f'{method}: K4 launches per device {k4_dev}, iterations '
+              f'{want_dev}')
+        check(dp_ok(cmp), f'{method} dp vs unsharded: {cmp}')
+        check(int(info.nan.sum()) == 0 and int(info.failed.sum()) == 0,
+              f'{method} dp: nan or failed members')
+    gen = torch.Generator().manual_seed(14)
+    b, n = CONV['members'] // SHARDS, CONV['nz'] - 1
+    theta, v = iso_inputs(gen, b, n, torch.float32)
+    got = ccv.iso_fit(theta.to(dev), v.to(dev)).cpu()
+    ulp = ulp_diff(got, pc.iso_rows_plain(theta, v))
+    theta, v = theta.to(dev), v.to(dev)
+    k4_time = dict(timed_pair(lambda: ccv.iso_fit(theta, v),
+                              lambda: pc.iso_rows_plain(theta, v)),
+                   b=b, n=n, max_ulp_vs_cpu=ulp,
+                   bound=bound(4 * (2 * b * n + n),
+                               2 * b * n + n + 5 * b * n * (n + 1) // 2))
+    emit('dp_conv', members=CONV['members'], nz=world.nz, shards=mesh.size,
+         devices=[str(d) for d in devices], bound_rel=DP_REL_BOUND,
+         k4_at_shard=k4_time, **out)
+    check(ulp == 0, f'K4 at {b} x {n}: {ulp} ulp from its plain version')
+    return dict(launches=launches, times=k4_time)
+
+
+def rg_tp_case(prg, pens, pmesh, gas, devices, cache=None):
+    """One band-sharded net flux against the unsharded one: the column's
+    initial T, every band shard's partial on its device, psum'd."""
+    import torch
+    mesh = pmesh.make_mesh(('x',), devices=devices)
+    tau, ba, F, delta = gas.tau_device, gas.band_arrays, gas._F_star_factor, \
+        gas._geom_device[0]
+    if cache is None:
+        cache = prg.precompute_transmission(tau, ba)
+    T = gas.state.T
+    T_g = torch.full((1,), float(gas.T_g), dtype=T.dtype, device=T.device)
+    bas, caches, Fs, deltas = pens.shard_bands(mesh, 'x', ba, cache, F, delta)
+    fn = pens.real_gas_net_fn_band_sharded(
+        mesh, 'x', [T_g.to(d) for d in mesh.flat_devices], caches, bas, Fs,
+        deltas)
+    net, diff = fn(T)
+    net1, diff1 = prg.real_gas_net_and_diff_cached(T[..., 0], T_g, cache,
+                                                   ba, F, delta)
+
+    def rel(a, b):
+        return float((a.double() - b.double()).abs().max()
+                     / b.double().abs().max())
+    return dict(
+        nz=gas.nz, n_bands=int(ba.idx.shape[0]),
+        lw_bands_per_shard=[int(b.lw_list.numel()) for b in bas],
+        rel_err_net=rel(net[..., 0], net1),
+        rel_err_net_diff=rel(diff[..., 0], diff1),
+        finite=bool(torch.isfinite(net).all()),
+        call_ms=time_ms(lambda: fn(T), reps=20),
+        unsharded_call_ms=time_ms(lambda: prg.real_gas_net_and_diff_cached(
+            T[..., 0], T_g, cache, ba, F, delta), reps=20))
+
+
+def phase_rg_tp(prg, pens, pmesh, dev, devices=None, hires=None):
+    """The real-gas net flux with the bands on 'x' = SHARDS (phase 3l):
+    bench_real_gas_earth's column (nz 'auto', 200 bands) and
+    bench_real_gas_hires's (nz 400, its f32 cache), each band shard's
+    partial summed by psum, against the one-device band sum within
+    RG_TP_REL_BOUND; the call times of both.  ``hires``: an nz 400 gas
+    already built (its host build takes seconds)."""
+    devices = devices or [dev] * SHARDS
+    res = {'earth': rg_tp_case(prg, pens, pmesh, earth_gas(prg, 'auto'),
+                               devices)}
+    res['hires'] = rg_tp_case(prg, pens, pmesh, hires or earth_gas(
+        prg, RG_HIRES['nz']), devices)
+    emit('rg_tp', shards=len(devices), devices=[str(d) for d in devices],
+         bound_rel=RG_TP_REL_BOUND, **res)
+    for key, r in res.items():
+        check(r['finite'] and r['rel_err_net'] < RG_TP_REL_BOUND,
+              f'rg_tp {key}: {r}')
+
+
+def rg_march_compare(fs, info, ref, ref_info, active):
+    """A real-gas march against the unsharded one: the largest relative
+    difference of the final T over all cells and over the ``active`` ones
+    (tau > 0.03 at some wavenumber: the thin TOA cells' f32 tendency is
+    rounding noise, RG_CARD_CPU), and the flags."""
+    import numpy as np
+    import torch
+    T, T_ref = fs.T.double().cpu().numpy(), ref.T.double().cpu().numpy()
+    same = (info.steps == ref_info.steps).cpu().numpy()
+    scale = np.abs(T_ref).max()
+    return dict(bit_equal=bool(torch.equal(fs.T, ref.T)),
+                step_agreement=float(same.mean()),
+                max_rel_err=float(np.abs(T - T_ref).max() / scale),
+                max_rel_err_active=float(
+                    np.abs(T - T_ref)[:, active].max() / scale),
+                converged_fraction=float(info.equilibrium.double().mean()),
+                unsharded_converged_fraction=float(
+                    ref_info.equilibrium.double().mean()),
+                failed=int(info.failed.sum()), nan=int(info.nan.sum()))
+
+
+def rg_batch_probe(prg, states, sc, T_gs, args, n_blocks):
+    """Whether the real-gas step's products give a member the same bits in
+    a batch of B as in a block of B / n_blocks: the interface spline
+    ``T @ S.T``, the band product ``_band_matvec`` and the whole
+    ``real_gas_net_and_diff_cached``, at ``states``' T."""
+    import torch
+    tau, ba, F0, delta = args[:4]
+    cache = prg.precompute_transmission(tau, ba)
+    T, F = states.T[..., 0], F0[None, :] * sc[:, None]
+    m = T.shape[0] // n_blocks
+    blocks = [slice(k * m, (k + 1) * m) for k in range(n_blocks)]
+
+    def same(fn):
+        whole = fn(slice(None))
+        return all(bool(torch.equal(whole[b], fn(b))) for b in blocks)
+    return dict(
+        spline_matmul=same(lambda b: torch.matmul(T[b], ba.S.T)),
+        band_matvec=same(lambda b: prg._band_matvec(
+            cache.M_sum, prg._planck_terms(T[b], T_gs[b], ba)[0])),
+        net_and_diff=same(lambda b: prg.real_gas_net_and_diff_cached(
+            T[b], T_gs[b], cache, ba, F[b], delta)[0]))
+
+
+def phase_rg_dp(prg, ens, pens, pmesh, dev, devices=None):
+    """bench_real_gas_earth_ensemble (64 members of the earth column,
+    temp_change 0.5, one shared cache) with the members on 'data' = SHARDS
+    (dp, phase 3m) and on ('data', 'x') = (2, SHARDS / 2) with the bands
+    on 'x' (dp x tp, phase 3n), each beside the unsharded march: the whole
+    march (walls; every member must converge), and the first RG_WINDOW
+    steps, whose T on the active cells is held to the unsharded window's
+    within RG_DP_REL_BOUND (dp) / RG_DP_TP_REL_BOUND (dp x tp) with 90% of
+    the members at its step.  A whole march is compared but not bounded:
+    a last-bit difference part a free-running f32 march from the unsharded
+    one, and the controller's frozen levels keep where each path left
+    them.  ``batch_invariant``: which of the step's products give a member
+    the same bits in a shard's block as in the whole batch."""
+    import numpy as np
+    devices = devices or [dev] * SHARDS
+    gas = earth_gas(prg, 'auto', temp_change=RG_ENSEMBLE['temp_change'])
+    scales = np.linspace(*RG_ENSEMBLE['F'], RG_ENSEMBLE['members'])
+    states, sc, T_gs, args = ens.real_gas_ensemble(gas, F_scales=scales)
+    kw = dict(t_end=RG_ENSEMBLE['t_end'], max_steps=RG_ENSEMBLE['max_steps'])
+    win = dict(kw, max_steps=RG_WINDOW)
+    ft = RG_ENSEMBLE['flux_thresh']
+    active = np.asarray(gas.tau_interface).max(axis=1)[1:] > 0.03
+    (ref, ref_info), wall_1 = timed(lambda: ens.real_gas_evolve_ensemble(
+        states, sc, T_gs, *args, ft, **kw))
+    ref_w, ref_w_info = ens.real_gas_evolve_ensemble(states, sc, T_gs, *args,
+                                                     ft, **win)
+    days_1 = float(ref.t.double().sum()) / 86400.0
+    meshes = {
+        'rg_dp': (pmesh.make_mesh(('data',), devices=devices), None,
+                  RG_DP_REL_BOUND),
+        'rg_dp_tp': (pmesh.make_mesh(('data', 'x'), shape=(
+            2, len(devices) // 2), devices=devices), 'x',
+            RG_DP_TP_REL_BOUND)}
+    for phase, (mesh, band_axis, bound_rel) in meshes.items():
+        tel = {}
+
+        def run(march_kw):
+            return pens.real_gas_evolve_ensemble_sharded(
+                mesh, states, sc, T_gs, *args, ft, band_axis=band_axis,
+                telemetry=tel, **march_kw)
+        (fs, info), wall = timed(lambda: run(kw))
+        iterations = tel['iterations']
+        days = float(fs.t.double().sum()) / 86400.0
+        whole = rg_march_compare(fs, info, ref, ref_info, active)
+        window = rg_march_compare(*run(win), ref_w, ref_w_info, active)
+        emit(phase, members=len(scales), nz=gas.nz, mesh=mesh.shape,
+             devices=[str(d) for d in devices], wall_s=wall,
+             unsharded_wall_s=wall_1, model_days_per_sec=days / wall,
+             unsharded_model_days_per_sec=days_1 / wall_1,
+             sharded_over_unsharded=days / wall / (days_1 / wall_1),
+             iterations=iterations,
+             unsharded_iterations=int(ref_info.steps.max()),
+             whole_march=whole, window_steps=RG_WINDOW, window=window,
+             bound_rel_window_active=bound_rel,
+             batch_invariant=rg_batch_probe(prg, ref, sc, T_gs, args,
+                                            mesh.shape['data']))
+        check(whole['converged_fraction'] == 1.0
+              and whole['unsharded_converged_fraction'] == 1.0
+              and whole['failed'] == 0 and whole['nan'] == 0,
+              f'{phase}: not every member converged: {whole}')
+        check(window['step_agreement'] >= 0.9
+              and window['max_rel_err_active'] < bound_rel,
+              f'{phase} window: {window}')
+
+
+def phase_sw_dp_sp(psw, phalo, pmesh, Omega, R_earth, csl, dev,
+                   devices=None):
+    """bench_sw's El Nino world (2050 x 1026, f32) as an ensemble of
+    DP_SW['members'] members (h scaled by 1 + k dh) on ('data', 'x') =
+    DP_SW['mesh'] (dp x sp, phase 3o): each data row x-shards its members
+    with the plain richtmyer stencils, each member with its own dt, ok and
+    wind.  DP_SW['steps'] steps against each member's unsharded plain
+    richtmyer run (``sw_simulate``) within the El Nino bounds; no Richtmyer
+    kernel launches."""
+    import torch
+    devices = devices or [dev] * SHARDS
+    mesh = pmesh.make_mesh(('data', 'x'), shape=DP_SW['mesh'],
+                           devices=devices)
+    world = sw_world(psw, Omega, R_earth, SW['nx'], SW['ny'], device=dev)
+    st0 = world.state
+    kw = dict(world._step_kwargs(), solver='richtmyer')
+    n, nt = DP_SW['members'], DP_SW['steps']
+    members = [psw.apply_boundary_conditions(
+        st0.h * (1 + DP_SW['dh'] * k), st0.u, st0.v, 'walls', 'walls')
+        for k in range(n)]
+    h, u, v = (torch.stack(f) for f in zip(*members))
+    csl.reset_launch_counts()
+    ensemble = phalo.ShardedShallowWaterEnsemble(world, mesh, h, u, v)
+    out, wall = timed(lambda: ensemble.run(nt))
+    launches = dict(csl.launch_counts)
+    refs, wall_1 = timed(lambda: [psw.sw_simulate(
+        st0.replace(h=m[0], u=m[1], v=m[2]), world.params, nt, **kw)
+        for m in members])
+    err = {name: max(max_abs(out[i][k], getattr(r, name))
+                     for k, r in enumerate(refs))
+           for i, name in enumerate(('h', 'u', 'v'))}
+    cells = (SW['nx'] - 2) * (SW['ny'] - 2) * n * nt
+    res = dict(members=n, mesh=list(DP_SW['mesh']),
+               devices=[str(d) for d in devices], steps=nt,
+               grid=[SW['nx'], SW['ny']], solver=ensemble.solver,
+               wall_s=wall, unsharded_wall_s=wall_1,
+               cell_updates_per_sec=cells / wall,
+               unsharded_cell_updates_per_sec=cells / wall_1,
+               sharded_over_unsharded=wall_1 / wall,
+               dt_per_member=[float(x) for x in out[4]],
+               ok=[bool(x) for x in out[5]],
+               max_dh_m=err['h'], max_du=err['u'], max_dv=err['v'],
+               bound_dh_m=SW_DH_BOUND_M, bound_du=SW_DU_BOUND,
+               launches=launches)
+    emit('sw_dp_sp', **res)
+    check(all(res['ok']) and all(bool(torch.isfinite(x).all())
+                                 for x in out[:3]),
+          'dp x sp: a member aborted or went non-finite')
+    check(err['h'] < SW_DH_BOUND_M and err['u'] < SW_DU_BOUND
+          and err['v'] < SW_DU_BOUND, f'dp x sp vs unsharded: {err}')
+    check(sum(launches.values()) == 0, 'a Richtmyer kernel launched on the '
+          'dp x sp path')
+
+
 def phase_sw_card_vs_cpu(psw, Omega, R_earth, dev, full_steps=20):
     """The card against the port's plain path on the CPU from one shared
     state, free running: the full-width El Nino world for ``full_steps``
@@ -3076,6 +3534,7 @@ def main():
     from climatemodel_tpu_torch.ops import stencils as pst
     from climatemodel_tpu_torch.ops import two_stream as ts
     from climatemodel_tpu_torch.parallel import halo as phalo
+    from climatemodel_tpu_torch.parallel import ensemble as pens
     from climatemodel_tpu_torch.parallel import level_scan as pls
     from climatemodel_tpu_torch.parallel import mesh as pmesh
     from climatemodel_tpu_torch.spectral import earth_tables as pet
@@ -3115,7 +3574,7 @@ def main():
     phase_rg_tables(pet, ph)
     rg_main = phase_rg_main(prg, phum, mods)
     phase_rg_ensemble(prg, ens, mods)
-    phase_rg_hires(prg)
+    rg_hires = phase_rg_hires(prg)
     rg_iso_launches, rg_iso_n = phase_rg_convective(prg, phum, pcol, mods)
     k6_launches = phase_sw_main(psw, Omega, R_earth, csl, dev)
     k5_launches = phase_sw_step_path(psw, Omega, R_earth, csl, dev)
@@ -3125,6 +3584,15 @@ def main():
                                   dev)
     phase_sharded_2d(psw, phalo, pmesh, Omega, R_earth, csl, dev)
     phase_level_scan(GreyGas, p_surface_earth, pls, pmesh, ts, dev)
+    # parallel/ensemble.py and the dp x sp step: the member- and
+    # band-sharded compositions; their K3/K4 launches join their kernels'
+    dp_grey = phase_dp_grey(ens, pens, pmesh, GreyGas, p_surface_earth,
+                            mods, cts, ts, dev)
+    dp_conv = phase_dp_conv(ens, pens, pmesh, GreyGas, p_surface_earth,
+                            mods, ccv, pc, dev)
+    phase_rg_tp(prg, pens, pmesh, dev, hires=rg_hires)
+    phase_rg_dp(prg, ens, pens, pmesh, dev)
+    phase_sw_dp_sp(psw, phalo, pmesh, Omega, R_earth, csl, dev)
     phase_card_vs_cpu(ens, GreyGas, p_surface_earth, main_res, dev)
     phase_conv_card_vs_cpu(ens, conv_state, dev)
     phase_sw_card_vs_cpu(psw, Omega, R_earth, dev)
@@ -3183,12 +3651,14 @@ def main():
         entry('net_stats_walk', 'two_stream.cu',
               'climatemodel_tpu/ops/pallas_two_stream.py:64 '
               '(_net_stats_kernel, K3)',
-              launches['net_stats_walk'] + cli_launches['net_stats_walk'],
+              launches['net_stats_walk'] + cli_launches['net_stats_walk']
+              + dp_grey['k3'] + dp_conv['launches']['net_stats_walk'],
               at_main['net_stats_walk'], times['net_stats_walk']),
         entry('iso_fit', 'convection.cu',
               'climatemodel_tpu/ops/pallas_isotonic.py:41 (_iso_kernel, K4)',
               conv_res['isotonic']['launches']['iso_fit'] + rg_iso_launches
-              + cli_launches['iso_fit'], at_main['iso_fit'], times[iso_main]),
+              + cli_launches['iso_fit'] + dp_conv['launches']['iso_fit'],
+              at_main['iso_fit'], times[iso_main]),
         entry('div_probe', 'convection.cu',
               'tools/probe_mosaic_div.py:28 (_kernel of via_pallas, K7)',
               probe['launches'], probe['err'], times['div_probe'],

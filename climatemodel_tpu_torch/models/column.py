@@ -130,8 +130,8 @@ class ColumnState(TensorStruct):
 
 
 def init_time_step_info(n_levels_flat: int, temp_change: float = 1.0,
-                        delta_temp_change: float = 0.01, *, batch: int = 1,
-                        dtype=torch.float32, device='cuda') -> TimeStepInfo:
+                        delta_temp_change: float = 0.01, dtype=torch.float32,
+                        *, batch: int = 1, device='cuda') -> TimeStepInfo:
     """Fresh TimeStepInfo for ``batch`` marches (reference time_step_info
     defaults, base.py:125-128), on the card unless ``device`` names another."""
     def f(v):
@@ -259,14 +259,13 @@ def _percentile_from_stats(top1, top_hi, top_lo, n, pct):
 # Temperature update (base.py:130-195)
 # --------------------------------------------------------------------------
 
-def update_temp(state: ColumnState, net_flux, p_interface,
-                convective_adjust: bool = False,
+def update_temp(state: ColumnState, net_flux, p_interface, p_centre_col=None,
+                changing_tau: bool = False, convective_adjust: bool = False,
                 net_flux_thresh: float = 1e-7, net_flux_percentile: float = 95,
-                delta_stats=None, p_centre_col=None,
                 conv_thresh: float = 1e-5, conv_t_multiplier: float = 5.0,
-                conv_method: str = 'reference', changing_tau: bool = False,
-                compute_delta: bool = True, p_descending: bool = True,
-                net_flux_diff=None):
+                p_descending: bool = True, conv_method: str = 'reference',
+                net_flux_diff=None, compute_delta: bool = True,
+                delta_stats=None):
     """One finite-volume temperature update with adaptive dt, per member.
 
     :param net_flux: [B, nz, ny] freshly computed net flux.
@@ -488,9 +487,10 @@ class _DebugRecord:
         self.t = torch.where(new, st.t, self.t)
         self.tmin = torch.where(new, tmin, self.tmin)
 
-    def raise_first(self):
+    def raise_first(self, offset=0, n_members=None):
         """Raise :class:`MarchDebugError` for the first member (by index)
-        that recorded a failure; return if none did."""
+        that recorded a failure; return if none did.  ``offset``: the index
+        of this record's first member among ``n_members`` (a shard's)."""
         kind = self.kind.cpu()
         failing = torch.nonzero(kind > 0)
         if len(failing) == 0:
@@ -499,8 +499,8 @@ class _DebugRecord:
         msg = self._MESSAGES[int(kind[m])].format(
             lev=int(self.lev[m]), i=int(self.step[m]), t=float(self.t[m]),
             tmin=float(self.tmin[m]))
-        raise MarchDebugError(msg if kind.numel() == 1 else
-                              f'member {m}: {msg}')
+        raise MarchDebugError(msg if (n_members or kind.numel()) == 1 else
+                              f'member {offset + m}: {msg}')
 
 
 class _Lockstep:
@@ -660,42 +660,112 @@ def evolve_to_equilibrium(state: ColumnState, net_flux_fn: Callable,
         the in-march percentile/flux-balance reductions.
     :return: (final ColumnState, EquilibriumInfo)
     """
+    [(st, info)], _ = evolve_to_equilibrium_sharded(
+        [state], [net_flux_fn], [p_interface], [p_centre_col],
+        net_stats_fns=[net_stats_fn], flux_thresh=flux_thresh,
+        convective_adjust=convective_adjust, t_end=t_end,
+        conv_thresh=conv_thresh, conv_t_multiplier=conv_t_multiplier,
+        net_flux_thresh=net_flux_thresh,
+        net_flux_percentile=net_flux_percentile, max_steps=max_steps,
+        use_delta_exit=use_delta_exit, conv_method=conv_method, i0=i0,
+        final_reset=final_reset, check_every=check_every,
+        dip_memory=dip_memory, debug=debug, p_descending=p_descending)
+    return st, info
+
+
+def evolve_to_equilibrium_sharded(states, net_flux_fns, p_interfaces,
+                                  p_centre_cols=None, *, net_stats_fns=None,
+                                  flux_thresh=1e-3,
+                                  convective_adjust: bool = False,
+                                  t_end: float = 4.0,
+                                  conv_thresh: float = 1e-5,
+                                  conv_t_multiplier: float = 5.0,
+                                  net_flux_thresh: float = 1e-7,
+                                  net_flux_percentile: float = 95,
+                                  max_steps: int = 500_000,
+                                  use_delta_exit: bool = True,
+                                  conv_method: str = 'reference', i0=0,
+                                  final_reset: bool = True,
+                                  check_every: int = 1,
+                                  dip_memory: bool = False,
+                                  debug: bool = False,
+                                  p_descending: bool = True):
+    """:func:`evolve_to_equilibrium` of S shards of members at once, one
+    lock-step march per shard, each on its own tensors' device: the shards
+    of a member-sharded ensemble (``parallel/ensemble.py``).
+
+    Every iteration steps each shard that has not stopped (queued on its
+    own device, so the cards run while the host dispatches), and the host
+    reads every shard's stop flags once every SYNC_EVERY iterations.  A
+    member's march is the unsharded one step for step: members are
+    independent, and a stopped member is frozen.  The keywords are
+    :func:`evolve_to_equilibrium`'s.
+
+    :param states, net_flux_fns, p_interfaces: per-shard lists.
+    :param p_centre_cols, net_stats_fns: per-shard lists, or None.
+    :param flux_thresh: a float, or a per-shard list (of floats or of a
+        shard's [B_s] tensors).
+    :return: (per-shard list of (final ColumnState, EquilibriumInfo), the
+        lock-step iterations each shard ran).
+    """
     if debug and check_every > 1:
         raise ValueError('debug=True needs per-step checks (check_every=1): '
                          'the failing step/level is the whole point')
-    march = _Lockstep(state, net_flux_fn, p_interface, flux_thresh=flux_thresh,
-                      i0=i0, max_steps=max_steps, t_end=t_end,
-                      net_flux_thresh=net_flux_thresh,
-                      net_flux_percentile=net_flux_percentile,
-                      use_delta_exit=use_delta_exit, net_stats_fn=net_stats_fn,
-                      conv_kw=_conv_kw(convective_adjust, p_centre_col,
-                                       conv_thresh, conv_t_multiplier,
-                                       conv_method, p_descending),
-                      debug=debug)
+    n = len(states)
+    p_centre_cols = p_centre_cols or [None] * n
+    net_stats_fns = net_stats_fns or [None] * n
+
+    if not isinstance(flux_thresh, list):
+        flux_thresh = [flux_thresh] * n
+    marches = [
+        _Lockstep(st, fn, p_int, flux_thresh=ft, i0=i0,
+                  max_steps=max_steps, t_end=t_end,
+                  net_flux_thresh=net_flux_thresh,
+                  net_flux_percentile=net_flux_percentile,
+                  use_delta_exit=use_delta_exit, net_stats_fn=stats_fn,
+                  conv_kw=_conv_kw(convective_adjust, p_c, conv_thresh,
+                                   conv_t_multiplier, conv_method,
+                                   p_descending),
+                  debug=debug)
+        for st, fn, p_int, p_c, stats_fn, ft in zip(
+            states, net_flux_fns, p_interfaces, p_centre_cols,
+            net_stats_fns, flux_thresh)]
     chunked = check_every > 1 and not dip_memory
     if chunked:
         # the fully checked two-step prefix (a no-op where i0 >= 2)
         for _ in range(2):
-            march.step(march.stopped() | (march.i >= 2))
-    # one device->host sync every SYNC_EVERY steps; stopped members are
-    # frozen, so the iterations in between are no-ops for them
+            for march in marches:
+                march.step(march.stopped() | (march.i >= 2))
+    # one device->host sync a shard every SYNC_EVERY steps; stopped members
+    # are frozen, so the iterations in between are no-ops for them
     per_sync = max(1, SYNC_EVERY // check_every) if chunked else SYNC_EVERY
+    iterations = [0] * n
+    running = list(range(n))
     it = 0
-    while True:
-        stop = march.stopped()
-        if it % per_sync == 0 and bool(stop.all()):
-            break
+    while running:
+        stops = {k: marches[k].stopped() for k in running}
+        if it % per_sync == 0:
+            done = {k: s.all() for k, s in stops.items()}  # queued first
+            running = [k for k in running if not bool(done[k])]
         it += 1
-        if chunked:
-            march.chunk(int(check_every), stop)
-        else:
-            march.step(stop)
-    if march.record is not None:
-        march.record.raise_first()
-    st = march.carry[0]
-    if final_reset:
-        st = st.replace(tsi=reset_time_step_info(st.tsi))
-    return st, march.info()
+        for k in running:
+            iterations[k] += 1
+            if chunked:
+                marches[k].chunk(int(check_every), stops[k])
+            else:
+                marches[k].step(stops[k])
+    n_members, offset = sum(m.i.numel() for m in marches), 0
+    for march in marches:
+        if march.record is not None:
+            march.record.raise_first(offset, n_members)
+        offset += march.i.numel()
+    out = []
+    for march in marches:
+        st = march.carry[0]
+        if final_reset:
+            st = st.replace(tsi=reset_time_step_info(st.tsi))
+        out.append((st, march.info()))
+    return out, iterations
 
 
 def run_chunked_march(state: ColumnState, evolve: Callable, *, t_host_start,

@@ -321,7 +321,7 @@ def _frame_constants(params: SWParams, flat_orography, row_geometry):
 
 
 def sw_step_frame(state: SWState, max2, params: SWParams, extras, bx, by,
-                  wind_type, target_courant, out=None):
+                  wind_type, target_courant, *, out=None):
     """sw_step through the kernel's boundary-condition mode (K6; the JAX
     package's padded-frame step, on unpadded fields).  Damping, the abort
     freeze, every ghost cell and the CFL statistic come out of the kernel;

@@ -10,15 +10,17 @@
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on the current stream, raises if the
-launch failed, and adds one to its entry of :data:`launch_counts`.  They
-never compute on the CPU: the plain versions are in ``ops/convection.py``,
-whose dispatchers pick by device.  The kernels have no backward, so each
+launch failed, and adds one to its entry of :data:`launch_counts` and to
+its device's of :data:`device_launch_counts`.  They never compute on the
+CPU: the plain versions are in ``ops/convection.py``, whose dispatchers
+pick by device.  The kernels have no backward, so each
 wrapper refuses an input that requires grad while grad mode is on, naming
 the plain version to differentiate instead (``cuda_two_stream._refuse_grad``;
 JAX's kernel dispatchers have no reverse mode either).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -29,6 +31,9 @@ from .cuda_two_stream import _check, _raise_on, _refuse_grad
 
 #: launches of each kernel since the last :func:`reset_launch_counts`
 launch_counts = {'iso_fit': 0, 'div_probe': 0}
+#: launches of each (kernel, device) pair since the last reset, e.g.
+#: ``('net_stats_walk', 'cuda:1')``
+device_launch_counts = collections.Counter()
 
 _SUFFIX = {torch.float32: 'f32', torch.float64: 'f64'}
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -37,6 +42,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 def reset_launch_counts():
     for k in launch_counts:
         launch_counts[k] = 0
+    device_launch_counts.clear()
 
 
 @functools.lru_cache(maxsize=None)
@@ -89,6 +95,7 @@ def iso_fit(theta, v):
             theta.data_ptr(), v.data_ptr(), out.data_ptr(), n, C, stream)
     _raise_on(err, 'iso_fit')
     launch_counts['iso_fit'] += 1
+    device_launch_counts[('iso_fit', str(theta.device))] += 1
     return out
 
 
@@ -110,4 +117,5 @@ def div_probe(a, b):
                                 stream)
     _raise_on(err, 'div_probe')
     launch_counts['div_probe'] += 1
+    device_launch_counts[('div_probe', str(a.device))] += 1
     return outs

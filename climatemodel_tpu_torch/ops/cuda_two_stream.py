@@ -12,8 +12,9 @@ march's own rows ([b, n], a member's column contiguous), so the march hands
 its carries over without a copy.  Each wrapper checks device, dtype, shape and
 contiguity, allocates its outputs with ``torch.empty``, launches on the
 current stream, raises if the launch failed, and adds one to its entry of
-:data:`launch_counts`.  They never compute on the CPU: the plain twins live
-in ``ops/two_stream.py`` and the dispatchers there pick by device.
+:data:`launch_counts` and to its device's of :data:`device_launch_counts`.
+They never compute on the CPU: the plain twins live in
+``ops/two_stream.py`` and the dispatchers there pick by device.
 
 The kernels have no backward: an output of ``torch.empty`` carries no graph.
 So each wrapper refuses an input that requires grad while grad mode is on
@@ -24,6 +25,7 @@ dispatchers have no reverse mode either
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -33,6 +35,9 @@ from . import _cuda_build
 
 #: launches of each kernel since the last :func:`reset_launch_counts`
 launch_counts = {'lw_walk': 0, 'net_stats_walk': 0}
+#: launches of each (kernel, device) pair since the last reset, e.g.
+#: ``('net_stats_walk', 'cuda:1')``
+device_launch_counts = collections.Counter()
 
 _SUFFIX = {torch.float32: 'f32', torch.float64: 'f64'}
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -41,6 +46,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 def reset_launch_counts():
     for k in launch_counts:
         launch_counts[k] = 0
+    device_launch_counts.clear()
 
 
 @functools.lru_cache(maxsize=None)
@@ -121,6 +127,7 @@ def lw_walk(T, dtau, up_flux_toa):
             up.data_ptr(), down.data_ptr(), n, b, stream)
     _raise_on(err, 'lw_walk')
     launch_counts['lw_walk'] += 1
+    device_launch_counts[('lw_walk', str(T.device))] += 1
     return up, down
 
 
@@ -160,4 +167,5 @@ def net_stats_walk(T, dtau, up_sw, down_sw, up_toa, prev_net, L):
                 net.data_ptr(), stats.data_ptr(), n, b, int(L), stream)
         _raise_on(err, 'net_stats_walk')
         launch_counts['net_stats_walk'] += 1
+        device_launch_counts[('net_stats_walk', str(T.device))] += 1
     return net, stats[0], stats[1], stats[2], stats[3]

@@ -567,12 +567,180 @@ class ShardedShallowWater:
 
 
 # --------------------------------------------------------------------------
+# members on 'data' x the x decomposition on 'x' (dp x sp)
+# --------------------------------------------------------------------------
+
+def make_batched_sharded_step(mesh: Mesh, data_axis='data', axis_name='x',
+                              solver='richtmyer', linear=False, bx='periodic',
+                              by='walls', wind_type=None,
+                              target_courant=0.1):
+    """The batched step of an ensemble on a ``(data_axis, axis_name)`` mesh:
+    each data row x-shards its own members, and each member keeps its own
+    CFL dt, ``ok`` and wind sums, as the JAX package's per-shard body
+    vmapped over the local members inside ``shard_map`` does.  A member
+    runs the x-sharded step of its data row (:func:`make_sharded_step` on
+    the row's shards), so it is bit-equal to that step.
+
+    ``step(hs, us, vs, t, dt_prev, ok, dt0, f_cor_pad, h_base_pad, r_int,
+    g, h_mean, dx, dy, wind_gamma, wind_tau0, wind_fluct, east_w, west_w)``
+    returns ``(hs, us, vs, t + dt, dt, ok)``:
+
+    * ``hs, us, vs``: per-shard lists (the mesh's row-major order) of
+      [m, nx_i / n_x, ny], the m members of the shard's data row;
+    * ``t, dt_prev, ok``: per-row lists of [m] tensors on each row's first
+      device (rows in ``data_axis`` order);
+    * ``f_cor_pad`` to ``r_int``, ``east_w``, ``west_w``: per-shard lists,
+      as :func:`make_sharded_step` takes them; the rest 0-d tensors.
+    """
+    if set(mesh.axis_names) != {data_axis, axis_name} or len(
+            mesh.axis_names) != 2:
+        raise ValueError(f'the batched step needs a mesh of the axes '
+                         f'({data_axis!r}, {axis_name!r}), got '
+                         f'{mesh.axis_names}')
+    devs = mesh.flat_devices
+    rows = col.axis_lines(mesh, axis_name)
+    row_steps = [make_sharded_step(Mesh([devs[k] for k in line],
+                                        (axis_name,)), axis_name,
+                                   solver=solver, linear=linear, bx=bx,
+                                   by=by, wind_type=wind_type,
+                                   target_courant=target_courant)
+                 for line in rows]
+
+    def step(hs, us, vs, t, dt_prev, ok, dt0, f_cor_pad, h_base_pad, r_int,
+             g, h_mean, dx, dy, wind_gamma, wind_tau0, wind_fluct, east_w,
+             west_w):
+        col.check_on_mesh(mesh, list(zip(hs, us, vs)), 'batched step shard')
+        out = ([None] * mesh.size, [None] * mesh.size, [None] * mesh.size)
+        carried = ([], [], [])
+        for r, (line, row_step) in enumerate(zip(rows, row_steps)):
+            lead = devs[line[0]]
+            sc = [x.to(lead) for x in (dt0, g, h_mean, dx, dy, wind_gamma,
+                                       wind_tau0, wind_fluct)]
+
+            def pick(xs):
+                return [xs[k] for k in line]
+            members = [row_step(
+                [hs[k][j] for k in line], [us[k][j] for k in line],
+                [vs[k][j] for k in line], t[r][j], dt_prev[r][j], ok[r][j],
+                sc[0], pick(f_cor_pad), pick(h_base_pad), pick(r_int),
+                *sc[1:], pick(east_w), pick(west_w))
+                for j in range(hs[line[0]].shape[0])]
+            for f in range(3):
+                for i, k in enumerate(line):
+                    out[f][k] = torch.stack([m[f][i] for m in members])
+                carried[f].append(torch.stack([m[3 + f] for m in members]))
+        return (*out, *carried)
+
+    return step
+
+
+class ShardedShallowWaterEnsemble:
+    """An ensemble of shallow-water worlds of one geometry on a
+    ``(data_axis, axis_name)`` mesh (dp x sp): the members are cut into
+    contiguous blocks along ``data_axis``, and each data row x-shards its
+    block with the plain stencils (a ``richtmyer_pallas`` world takes
+    ``richtmyer``, as the JAX package's composition does), every member
+    with its own dt, ``ok`` and wind (:func:`make_batched_sharded_step`).
+
+    :param world: the template: grid, boundaries, wind and the starting
+        t, dt and ok of every member.
+    :param h, u, v: [B, nx, ny] the members' initial fields (ghost cells
+        included); B divisible by the ``data_axis`` size.
+    """
+
+    def __init__(self, world: sw.ShallowWater, mesh: Mesh, h, u, v,
+                 data_axis='data', axis_name='x'):
+        self.world, self.mesh = world, mesh
+        self.data_axis, self.axis_name = data_axis, axis_name
+        devs = mesh.flat_devices
+        self.rows = col.axis_lines(mesh, axis_name)
+        # one x-sharded helper a row: its shards' geometry and wind scalars
+        self.helpers = [ShardedShallowWater(
+            world, Mesh([devs[k] for k in line], (axis_name,)), axis_name,
+            use_kernel=False) for line in self.rows]
+        self.solver = self.helpers[0].solver
+        n_rows = len(self.rows)
+        if h.shape[0] % n_rows:
+            raise ValueError(f'{h.shape[0]} members not divisible by '
+                             f'{n_rows} rows along {data_axis!r}')
+        self.n_members = h.shape[0]
+        m = self.n_members // n_rows
+        st = world.state
+        self.lead = devs[0]
+        self.t, self.dt, self.ok = (
+            [x.to(devs[line[0]]).expand(m).clone() for line in self.rows]
+            for x in (st.t, st.dt, st.ok))
+        self.fields = []                   # h, u, v: per-shard lists
+        for f in (h, u, v):
+            per = [None] * mesh.size
+            for r, (line, hp) in enumerate(zip(self.rows, self.helpers)):
+                block = f[r * m:(r + 1) * m, 1:-1]
+                for k, rows_x in zip(line, hp._blocks):
+                    per[k] = block[:, rows_x].to(
+                        devs[k], copy=True,
+                        memory_format=torch.contiguous_format)
+            self.fields.append(per)
+
+    def _per_shard(self, name):
+        out = [None] * self.mesh.size
+        for line, hp in zip(self.rows, self.helpers):
+            for k, x in zip(line, getattr(hp, name)):
+                out[k] = x
+        return out
+
+    def run(self, nt, target_courant=0.1):
+        """Run nt steps of every member.  A member whose dt fell below 10 s
+        is frozen (its ``ok`` False); nothing is raised.
+
+        :return: (h, u, v [B, nx, ny] with the global boundary conditions,
+            t, dt, ok [B]) on the mesh's first device.
+        """
+        wld = self.world
+        hp0 = self.helpers[0]
+        step = make_batched_sharded_step(
+            self.mesh, self.data_axis, self.axis_name, solver=self.solver,
+            linear=wld.linear, bx=wld.boundary_type['x'],
+            by=wld.boundary_type['y'], wind_type=wld.wind_type,
+            target_courant=target_courant)
+        dt0, g, h_mean, dx, dy = _world_scalars(wld, self.lead)
+        geom = [self._per_shard(n) for n in ('f_cor_pad', 'h_base_pad',
+                                              'r_int')]
+        east, west = self._per_shard('east_w'), self._per_shard('west_w')
+        hs, us, vs = self.fields
+        t, dt, ok = self.t, self.dt, self.ok
+        for _ in range(nt):
+            hs, us, vs, t, dt, ok = step(
+                hs, us, vs, t, dt, ok, dt0, *geom, g, h_mean, dx, dy,
+                hp0.wind_gamma, hp0.wind_tau0, hp0.wind_fluct, east, west)
+        self.fields, self.t, self.dt, self.ok = [hs, us, vs], t, dt, ok
+        return self.gather()
+
+    def gather(self):
+        """The members' fields [B, nx, ny] (boundary conditions applied)
+        and t, dt, ok [B], in member order on the mesh's first device."""
+        bx, by = self.world.boundary_type['x'], self.world.boundary_type['y']
+        full = []
+        for line in self.rows:
+            block = [torch.cat([f[k].to(self.lead) for k in line], 1)
+                     for f in self.fields]                 # [m, nx_i, ny]
+            for j in range(block[0].shape[0]):
+                h, u, v = (torch.cat([b[j, :1], b[j], b[j, -1:]], 0)
+                           for b in block)
+                full.append(stencils.apply_boundary_conditions(h, u, v, bx,
+                                                               by))
+        h, u, v = (torch.stack(x) for x in zip(*full))
+        t, dt, ok = (torch.cat([x.to(self.lead) for x in xs])
+                     for xs in (self.t, self.dt, self.ok))
+        return h, u, v, t, dt, ok
+
+
+# --------------------------------------------------------------------------
 # 2-D (x, y) domain decomposition
 # --------------------------------------------------------------------------
 
-def make_sharded_step_2d(mesh: Mesh, ax_x='x', ax_y='y', solver='richtmyer',
+def make_sharded_step_2d(ax_x='x', ax_y='y', solver='richtmyer',
                          linear=False, bx='periodic', by='walls',
-                         wind_type=None, target_courant=0.1):
+                         wind_type=None, target_courant=0.1, *, mesh: Mesh):
     """Sharded step of a 2-D spatial decomposition: shards hold interior
     blocks [nxi/Px, nyi/Py]; both ghost layers are rebuilt every step from
     the halos (y first, then x, so the x halo carries the y ghosts: corners
@@ -735,12 +903,13 @@ class ShardedShallowWater2D:
         st = wld.state
         lx, ly, dev = self.lx, self.ly, wld.device
         dt0, g, h_mean, dx, dy = _world_scalars(wld, self.lead)
-        step = make_sharded_step_2d(self.mesh, self.ax_x, self.ax_y,
+        step = make_sharded_step_2d(self.ax_x, self.ax_y,
                                     solver=self.solver, linear=wld.linear,
                                     bx=wld.boundary_type['x'],
                                     by=wld.boundary_type['y'],
                                     wind_type=wld.wind_type,
-                                    target_courant=target_courant)
+                                    target_courant=target_courant,
+                                    mesh=self.mesh)
         hs, us, vs = ([f[1:-1, 1:-1][i * lx:(i + 1) * lx,
                                      j * ly:(j + 1) * ly].to(d, copy=True)
                        for (i, j), d in zip(self._ij, self.devices)]

@@ -7,7 +7,9 @@ The port keeps that model.  A :class:`Mesh` is an array of
 ``[cuda:0] * 4`` is four shards on one card and ``[cpu] * 8`` is the
 tests' eight-shard mesh.  A sharded value is a list of per-shard tensors,
 one on each mesh device in the mesh's row-major order, and the collectives
-of ``parallel/collectives.py`` act on such lists.
+of ``parallel/collectives.py`` act on such lists.  Every shard's tensor
+lives on its own mesh device (``collectives.check_on_mesh``), and no
+shard's tensor is a view of another's.
 """
 from __future__ import annotations
 
@@ -82,3 +84,14 @@ def factor_devices(n: int):
         if n % rows == 0:
             best = (n // rows, rows)
     return best
+
+
+def on_device(x, device) -> bool:
+    """Whether tensor ``x`` lives on ``device`` (a CUDA device without an
+    index is the current one)."""
+    d, want = x.device, torch.device(device)
+    if d.type != want.type:
+        return False
+    if want.index is None:
+        return d.type != 'cuda' or d.index == torch.cuda.current_device()
+    return d.index == want.index

@@ -60,6 +60,7 @@ def test_port_imports_with_jax_blocked():
             'climatemodel_tpu_torch.parallel.collectives',
             'climatemodel_tpu_torch.parallel.halo',
             'climatemodel_tpu_torch.parallel.level_scan',
+            'climatemodel_tpu_torch.parallel.ensemble',
             'climatemodel_tpu_torch.native',
             } | {f'climatemodel_tpu_torch.examples.{name}'
                  for name in EXAMPLES}) <= set(MODULES)

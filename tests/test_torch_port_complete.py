@@ -121,6 +121,39 @@ def test_every_jax_parameter_name_is_accepted_by_the_port():
     assert not missing, missing
 
 
+#: functions whose JAX positional parameters do not lead the port's, and why
+POSITIONAL_EXEMPT = {}
+
+
+def _positional(fn):
+    return [x.arg for x in fn.args.posonlyargs + fn.args.args]
+
+
+def test_positional_order_matches_jax():
+    """JAX's positional parameters of every public function and method
+    lead its port counterpart's, in JAX's order (the unported ones of
+    ``UNPORTED_PARAMS`` left out), so a JAX caller's positional arguments
+    bind to the same parameters in the port; the port's own parameters
+    come after them or are keyword-only.  Read by ``ast``."""
+    wrong = {}
+    for path in sorted(JAX_PKG.rglob('*.py')):
+        rel = path.relative_to(JAX_PKG).as_posix()
+        if rel in UNPORTED:
+            continue
+        port_path = ROOT / 'climatemodel_tpu_torch' / rel
+        port = dict(_public_callables(ast.parse(port_path.read_text())))
+        for name, fn in _public_callables(ast.parse(path.read_text())):
+            theirs = port.get(name)
+            if theirs is None or (rel, name) in POSITIONAL_EXEMPT:
+                continue
+            skip = UNPORTED_PARAMS.get((rel, name), set())
+            want = [a for a in _positional(fn) if a not in skip]
+            got = _positional(theirs)
+            if got[:len(want)] != want:
+                wrong[f'{rel}:{name}'] = (want, got)
+    assert not wrong, wrong
+
+
 def test_every_example_function_has_a_port_counterpart():
     for name in EXAMPLES:
         port = importlib.import_module(f'climatemodel_tpu_torch.examples.'
