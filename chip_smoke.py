@@ -34,7 +34,10 @@ the convective ensemble with their members on the shards (K3, and K4 on
 isotonic, on every shard), the real-gas net flux with its bands on the
 shards, the real-gas ensemble with its members on them and on a (2, 2)
 mesh with the bands on its other axis, and bench_sw's El Nino world as an
-ensemble of 4 members on a (2, 2) mesh.  Last, the line-accumulation
+ensemble of 4 members on a (2, 2) mesh.  The ranks phase runs the
+headline dp and the x-sharded El Nino world SPMD, one process a card
+(``parallel/launch.run_ranks``, NCCL; one rank on one card), each rank's
+result bit-equal to the single-controller mesh of the same cards.  Last, the line-accumulation
 backends of ``spectral/hitran`` (the four earth tables and a 1e5-line list
 built with the C++ library and with PyTorch on the card, held to each other
 and to a NumPy row), the nine example scripts
@@ -3219,6 +3222,152 @@ def phase_sw_dp_sp(psw, phalo, pmesh, Omega, R_earth, csl, dev,
           'dp x sp path')
 
 
+# The ranks phase: one process a card (parallel/launch.run_ranks, NCCL), on
+# 4, 2 or 1 of the cards, the most that divide bench_sw's interior nx and the
+# headline's members
+RANKS_PHASE_MAX = 4
+RANKS_TIMEOUT_S = 300
+
+
+def rank_count(n_cards):
+    """The ranks of the ranks phase on ``n_cards`` cards: 4, 2 or 1."""
+    return max(r for r in (1, 2, RANKS_PHASE_MAX) if r <= n_cards)
+
+
+def rank_headline(mesh):
+    """The ranks phase in each rank (``run_ranks``; ``mesh`` the ranks on
+    'x'): bench_grey's headline with the members on the ranks ('data'),
+    then bench_sw's El Nino world at 2050 x 1026 x-sharded on K6's 'given'
+    mode, 400 steps, each after a warm run; the kernel counts set to 0
+    before each timed run and read after it."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from climatemodel_tpu_torch.constants import Omega, R_earth, \
+        p_surface_earth
+    from climatemodel_tpu_torch.models import ensemble as ens
+    from climatemodel_tpu_torch.models import shallow_water as psw
+    from climatemodel_tpu_torch.models.grey import GreyGas
+    from climatemodel_tpu_torch.parallel import ensemble as pens
+    from climatemodel_tpu_torch.parallel import halo as phalo
+    from climatemodel_tpu_torch.parallel import launch
+    from climatemodel_tpu_torch.parallel import mesh as pmesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh.device
+    data = pmesh.ProcessMesh(('data',), device=dev)
+    world = build_world(GreyGas, p_surface_earth, HEADLINE['nz'], dev)
+    states, forcings, p_int, p_c = ens.grey_ensemble(
+        world, np.linspace(*HEADLINE['F'], HEADLINE['members']))
+
+    def grey(max_steps, tel=None):
+        return pens.grey_evolve_ensemble_sharded(
+            data, states, forcings, p_int, p_c, HEADLINE['flux_thresh'],
+            telemetry=tel, max_steps=max_steps)
+
+    def timed_run(fn):
+        torch.cuda.synchronize()
+        dist.barrier()
+        launch.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, launch.launch_counts()
+
+    grey(20)                                               # warm
+    tel = {}
+    (fs, info), grey_wall, counts = timed_run(
+        lambda: grey(HEADLINE['max_steps'], tel))
+    sw = sw_world(psw, Omega, R_earth, SW['nx'], SW['ny'], True, device=dev)
+    st0 = sw.state
+    sh = phalo.ShardedShallowWater(sw, mesh)
+    sh.run(SW['nt'])                                       # warm
+    sw._state = st0
+    _, sw_wall, sw_counts = timed_run(lambda: sh.run(SW['nt']))
+    st = sw.state
+    return dict(grey=dict(T=fs.T, t=fs.t, steps=info.steps,
+                          equilibrium=info.equilibrium),
+                sw=dict(h=st.h, u=st.u, v=st.v, t=st.t, dt=st.dt, ok=st.ok),
+                iterations=tel['iterations'][0], grey_wall_s=grey_wall,
+                k3=counts['net_stats_walk'], sw_wall_s=sw_wall,
+                k6=sw_counts['richtmyer_step_bc'],
+                k5=sw_counts['richtmyer_step_interior'],
+                use_kernel=sh.use_kernel, card=str(dev),
+                name=torch.cuda.get_device_name(dev))
+
+
+def phase_ranks(ens, pens, phalo, pmesh, launch, psw, GreyGas,
+                p_surface_earth, Omega, R_earth):
+    """The compositions SPMD (phase 3l): ``run_ranks(rank_headline, n)``
+    on n = 4, 2 or 1 of the cards, one NCCL rank each, against the same
+    compositions on the single-controller mesh of the same cards in this
+    process: the grey headline's T, t, steps and equilibrium flags, and El
+    Nino's h, u, v, t, dt and ok bit-equal; K3 once per rank and
+    iteration, K6 once per rank and step (K5 never), each on its rank's
+    card.  Walls of the timed runs, the ranks' beside the
+    single-controller's."""
+    import numpy as np
+    import torch
+    n = rank_count(torch.cuda.device_count())
+    devices = [torch.device('cuda', i) for i in range(n)]
+    t0 = time.perf_counter()
+    out = launch.run_ranks(rank_headline, n, timeout_s=RANKS_TIMEOUT_S)
+    ranks_wall = time.perf_counter() - t0
+    # the same compositions on the single-controller mesh of the same cards
+    world = build_world(GreyGas, p_surface_earth, HEADLINE['nz'], devices[0])
+    states, forcings, p_int, p_c = ens.grey_ensemble(
+        world, np.linspace(*HEADLINE['F'], HEADLINE['members']))
+    (fs, info), grey_wall = timed(lambda: pens.grey_evolve_ensemble_sharded(
+        pmesh.make_mesh(('data',), devices=devices), states, forcings, p_int,
+        p_c, HEADLINE['flux_thresh'], max_steps=HEADLINE['max_steps']))
+    sw = sw_world(psw, Omega, R_earth, SW['nx'], SW['ny'], True,
+                  device=devices[0])
+    st0 = sw.state
+    sh = phalo.ShardedShallowWater(sw, pmesh.make_mesh(('x',),
+                                                       devices=devices))
+    sh.run(SW['nt'])                                       # warm
+    sw._state = st0
+    _, sw_wall = timed(lambda: sh.run(SW['nt']))
+    want = dict(grey=dict(T=fs.T, t=fs.t, steps=info.steps,
+                          equilibrium=info.equilibrium),
+                sw={k: getattr(sw.state, k) for k in ('h', 'u', 'v', 't',
+                                                      'dt', 'ok')})
+    equal = []
+    for r, (got, _) in enumerate(out):
+        equal.append({f'{part}.{k}': bool(np.array_equal(
+            got[part][k], w.cpu().numpy()))
+            for part in ('grey', 'sw') for k, w in want[part].items()})
+    res = dict(
+        ranks=n, cards=[g['card'] for g, _ in out],
+        names=sorted({g['name'] for g, _ in out}),
+        run_ranks_wall_s=ranks_wall,
+        grey_wall_s=[g['grey_wall_s'] for g, _ in out],
+        single_controller_grey_wall_s=grey_wall,
+        iterations=[g['iterations'] for g, _ in out],
+        launches_k3=[g['k3'] for g, _ in out],
+        sw_steps=SW['nt'], sw_ms_per_step=[1e3 * g['sw_wall_s'] / SW['nt']
+                                           for g, _ in out],
+        single_controller_sw_ms_per_step=1e3 * sw_wall / SW['nt'],
+        launches_k6=[g['k6'] for g, _ in out],
+        launches_k5=[g['k5'] for g, _ in out],
+        bit_equal=[all(e.values()) for e in equal],
+        not_equal=[[k for k, v in e.items() if not v] for e in equal])
+    emit('ranks', **res)
+    check(all(res['bit_equal']), f'ranks vs the single-controller mesh: '
+          f'{res["not_equal"]}')
+    check(all(g['use_kernel'] for g, _ in out), 'a rank is not on K6')
+    check(res['launches_k3'] == res['iterations']
+          and all(k > 0 for k in res['launches_k3']),
+          f'K3 per rank {res["launches_k3"]} != its iterations '
+          f'{res["iterations"]}')
+    check(res['launches_k6'] == [SW['nt']] * n and not any(
+        res['launches_k5']), f'K6/K5 per rank {res["launches_k6"]}, '
+        f'{res["launches_k5"]}')
+    check(int(info.nan.sum()) == 0 and int(info.failed.sum()) == 0,
+          'ranks: nan or failed members')
+    print(f'ranks: {n}', flush=True)
+    return dict(k3=sum(res['launches_k3']), k6=sum(res['launches_k6']))
+
+
 def phase_sw_card_vs_cpu(psw, Omega, R_earth, dev, full_steps=20):
     """The card against the port's plain path on the CPU from one shared
     state, free running: the full-width El Nino world for ``full_steps``
@@ -3535,6 +3684,7 @@ def main():
     from climatemodel_tpu_torch.ops import two_stream as ts
     from climatemodel_tpu_torch.parallel import halo as phalo
     from climatemodel_tpu_torch.parallel import ensemble as pens
+    from climatemodel_tpu_torch.parallel import launch
     from climatemodel_tpu_torch.parallel import level_scan as pls
     from climatemodel_tpu_torch.parallel import mesh as pmesh
     from climatemodel_tpu_torch.spectral import earth_tables as pet
@@ -3593,6 +3743,10 @@ def main():
     phase_rg_tp(prg, pens, pmesh, dev, hires=rg_hires)
     phase_rg_dp(prg, ens, pens, pmesh, dev)
     phase_sw_dp_sp(psw, phalo, pmesh, Omega, R_earth, csl, dev)
+    # the same compositions SPMD: one NCCL rank a card, each rank's K3 and
+    # K6 launches join their kernels'
+    ranks = phase_ranks(ens, pens, phalo, pmesh, launch, psw, GreyGas,
+                        p_surface_earth, Omega, R_earth)
     phase_card_vs_cpu(ens, GreyGas, p_surface_earth, main_res, dev)
     phase_conv_card_vs_cpu(ens, conv_state, dev)
     phase_sw_card_vs_cpu(psw, Omega, R_earth, dev)
@@ -3652,7 +3806,8 @@ def main():
               'climatemodel_tpu/ops/pallas_two_stream.py:64 '
               '(_net_stats_kernel, K3)',
               launches['net_stats_walk'] + cli_launches['net_stats_walk']
-              + dp_grey['k3'] + dp_conv['launches']['net_stats_walk'],
+              + dp_grey['k3'] + dp_conv['launches']['net_stats_walk']
+              + ranks['k3'],
               at_main['net_stats_walk'], times['net_stats_walk']),
         entry('iso_fit', 'convection.cu',
               'climatemodel_tpu/ops/pallas_isotonic.py:41 (_iso_kernel, K4)',
@@ -3669,7 +3824,7 @@ def main():
               'climatemodel_tpu/ops/pallas_stencils.py:158 (_kernel_body, '
               'K5) and :304 (_kernel_frame_body, K6; its bx=given mode '
               ':397, :450)',
-              k6_launches + k5_launches + k6_sharded
+              k6_launches + k5_launches + k6_sharded + ranks['k6']
               + cli_launches['richtmyer_step_bc']
               + cli_launches['richtmyer_step_interior'],
               at_main['richtmyer_step'],

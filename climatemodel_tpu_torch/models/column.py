@@ -689,7 +689,8 @@ def evolve_to_equilibrium_sharded(states, net_flux_fns, p_interfaces,
                                   check_every: int = 1,
                                   dip_memory: bool = False,
                                   debug: bool = False,
-                                  p_descending: bool = True):
+                                  p_descending: bool = True,
+                                  member_offsets=None, n_members=None):
     """:func:`evolve_to_equilibrium` of S shards of members at once, one
     lock-step march per shard, each on its own tensors' device: the shards
     of a member-sharded ensemble (``parallel/ensemble.py``).
@@ -705,6 +706,9 @@ def evolve_to_equilibrium_sharded(states, net_flux_fns, p_interfaces,
     :param p_centre_cols, net_stats_fns: per-shard lists, or None.
     :param flux_thresh: a float, or a per-shard list (of floats or of a
         shard's [B_s] tensors).
+    :param member_offsets, n_members: each shard's first member in the
+        whole ensemble, and its size, for a debug march's message (default:
+        the shards one after the other, the whole ensemble theirs).
     :return: (per-shard list of (final ColumnState, EquilibriumInfo), the
         lock-step iterations each shard ran).
     """
@@ -754,11 +758,12 @@ def evolve_to_equilibrium_sharded(states, net_flux_fns, p_interfaces,
                 marches[k].chunk(int(check_every), stops[k])
             else:
                 marches[k].step(stops[k])
-    n_members, offset = sum(m.i.numel() for m in marches), 0
-    for march in marches:
+    sizes = [m.i.numel() for m in marches]
+    if member_offsets is None:
+        member_offsets = [sum(sizes[:k]) for k in range(n)]
+    for march, offset in zip(marches, member_offsets):
         if march.record is not None:
-            march.record.raise_first(offset, n_members)
-        offset += march.i.numel()
+            march.record.raise_first(offset, n_members or sum(sizes))
     out = []
     for march in marches:
         st = march.carry[0]

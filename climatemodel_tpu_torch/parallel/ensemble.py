@@ -1,19 +1,23 @@
-"""Member- and band-sharded column ensembles on a single-controller mesh.
+"""Member- and band-sharded column ensembles on a mesh.
 
 A JAX user spreads an ensemble over several chips by putting the member
 axis of ``models/ensemble.py``'s inputs on a ``NamedSharding``; XLA then
 partitions the vmapped march, its kernels included, and a sharded band axis
 turns the real-gas band sum into a ``psum``.  The port runs the same
-compositions on a :class:`~climatemodel_tpu_torch.parallel.mesh.Mesh`:
+compositions on either kind of mesh (``parallel/mesh.py``): a
+single-controller ``Mesh``, whose process marches every shard, or a
+``ProcessMesh``, whose rank marches its own; each composition has one
+implementation, over the mesh's ``local_shards``:
 
 * dp (members on the mesh): :func:`grey_evolve_ensemble_sharded`,
   :func:`grey_evolve_ensemble_robust_sharded` and
   :func:`real_gas_evolve_ensemble_sharded` cut the member axis into one
   contiguous block per shard (``collectives.shard_members``) and march the
   blocks lock-step, one march per shard on its own device
-  (``column.evolve_to_equilibrium_sharded``): the grey march launches K3
-  on every shard's device.  Members are independent, so each member's
-  march is the unsharded one.
+  (``column.evolve_to_equilibrium_sharded``), each stopping on its own
+  flags: the grey march launches K3 on every shard's device.  Members are
+  independent, so each member's march is the unsharded one, and no
+  collective runs until the gather.
 * tp (bands on the mesh): :func:`shard_bands` cuts the band axis of the
   real-gas band arrays and transmission cache; each shard computes the
   partial ``(net, net_diff)`` of its own bands and ``collectives.psum``
@@ -21,12 +25,15 @@ compositions on a :class:`~climatemodel_tpu_torch.parallel.mesh.Mesh`:
   in each band's contribution, so the partial sums add up to the one-device
   sum, reassociated.
 * dp x tp: :func:`real_gas_evolve_ensemble_sharded` with ``band_axis``:
-  each data row marches its members once, on the row's first device, with
-  the net flux psum'd over its band shards; the member axis never
+  each data row marches its members once with the net flux psum'd over
+  its band shards (on a single-controller mesh on the row's first device;
+  on a process mesh every rank of the row runs the row's march, as the
+  replicas of a ``shard_map`` body do); the member axis never
   communicates.
 
-The results are gathered onto the mesh's first device in member order.
-Every shard's tensors are copies of their own on its mesh device.
+The results are gathered in member order onto the first local device (on
+a process mesh, every rank gets them all).  Every shard's tensors are
+copies of their own on its mesh device.
 """
 from __future__ import annotations
 
@@ -37,13 +44,12 @@ from ..models import column
 from ..models import ensemble as ens
 from ..models import real_gas as prg
 from . import collectives as col
-from .mesh import Mesh
 
 
-def _replicate(mesh: Mesh, tree):
-    """A copy of ``tree`` of its own on every mesh device."""
+def _replicate(mesh, tree):
+    """A copy of ``tree`` of its own on every local shard's device."""
     return [col.tree_map(lambda x: x.to(d, copy=True), tree)
-            for d in mesh.flat_devices]
+            for d in mesh.local_devices]
 
 
 def _check_members_span(mesh, axis_name):
@@ -67,11 +73,18 @@ def _record(telemetry, **fields):
         telemetry.update(fields)
 
 
+def _member_offsets(mesh, axis_name, n_members):
+    """Each local shard's first member in the whole ensemble (for the
+    debug march's messages)."""
+    blocks, n = col.member_blocks(mesh, axis_name)
+    return [blocks[k] * (n_members // n) for k in mesh.local_shards]
+
+
 # --------------------------------------------------------------------------
 # grey ensembles, members on the mesh (dp)
 # --------------------------------------------------------------------------
 
-def grey_evolve_ensemble_sharded(mesh: Mesh, states, forcings, p_interface,
+def grey_evolve_ensemble_sharded(mesh, states, forcings, p_interface,
                                  p_centre_col, flux_thresh, axis_name='data',
                                  fused_stats=True, net_flux_percentile=95,
                                  telemetry=None, **march_kw):
@@ -84,9 +97,10 @@ def grey_evolve_ensemble_sharded(mesh: Mesh, states, forcings, p_interface,
         (``convective_adjust`` with ``conv_method`` 'reference' or
         'isotonic', ``check_every``, ``max_steps``, ...).
     :param telemetry: optional dict; gets ``iterations``, the lock-step
-        iterations each shard ran (its K3 launches on the fused path).
+        iterations each local shard ran (its K3 launches on the fused
+        path).
     :return: (ColumnState, EquilibriumInfo) of every member in member
-        order, on the mesh's first device.
+        order, on the first local device.
     """
     _check_members_span(mesh, axis_name)
     st_s = col.shard_members(mesh, axis_name, states)
@@ -98,47 +112,51 @@ def grey_evolve_ensemble_sharded(mesh: Mesh, states, forcings, p_interface,
         st_s, [f[0] for f in fns], _replicate(mesh, p_interface),
         _replicate(mesh, p_centre_col), net_stats_fns=[f[1] for f in fns],
         flux_thresh=_per_shard(mesh, axis_name, flux_thresh),
-        net_flux_percentile=net_flux_percentile, **march_kw)
+        net_flux_percentile=net_flux_percentile,
+        member_offsets=_member_offsets(mesh, axis_name, states.T.shape[0]),
+        n_members=states.T.shape[0], **march_kw)
     _record(telemetry, iterations=iterations)
     return (col.gather_members(mesh, axis_name, [o[0] for o in outs]),
             col.gather_members(mesh, axis_name, [o[1] for o in outs]))
 
 
-def grey_finish_unconverged_f64_sharded(mesh: Mesh, fs, info, forcings,
+def grey_finish_unconverged_f64_sharded(mesh, fs, info, forcings,
                                         p_interface, p_centre_col,
                                         flux_thresh, axis_name='data',
                                         finish_repeats: int = 8,
                                         finish_max_steps: int = 1_000,
                                         telemetry=None, **march_kw):
     """:func:`models.ensemble.grey_finish_unconverged_f64` under a member
-    sharding: every shard re-marches its own timed-out members in f64 on
-    its own device, one shard after the other.
+    sharding: every local shard re-marches its own timed-out members in f64
+    on its own device, one shard after the other.
 
     :return: (states, info, finished) in member order; ``finished`` holds
         the global indices of the members the f64 pass completed.
-        ``telemetry`` gets ``finished``, each shard's count.
+        ``telemetry`` gets ``finished``, each local shard's count.
     """
     _check_members_span(mesh, axis_name)
-    blocks, n = col.member_blocks(mesh, axis_name)
-    per_block = fs.T.shape[0] // n
     shards = zip(*(col.shard_members(mesh, axis_name, x)
                    for x in (fs, info, forcings)),
                  _replicate(mesh, p_interface), _replicate(mesh, p_centre_col))
     done, finished = [], []
-    for k, (fs_k, info_k, fo_k, p_i, p_c) in enumerate(shards):
+    for fs_k, info_k, fo_k, p_i, p_c in shards:
         fs_k, info_k, fin = ens.grey_finish_unconverged_f64(
             fs_k, info_k, fo_k, p_i, p_c, flux_thresh,
             finish_repeats=finish_repeats, finish_max_steps=finish_max_steps,
             **march_kw)
         done.append((fs_k, info_k))
-        finished.append(fin + blocks[k] * per_block)
-    _record(telemetry, finished=[len(f) for f in finished])
+        mask = torch.zeros(fs_k.T.shape[0], dtype=torch.bool,
+                           device=fs_k.T.device)
+        mask[torch.as_tensor(fin, device=mask.device)] = True
+        finished.append(mask)
+    _record(telemetry, finished=[int(m.sum()) for m in finished])
+    mask = col.gather_members(mesh, axis_name, finished)
     return (col.gather_members(mesh, axis_name, [d[0] for d in done]),
             col.gather_members(mesh, axis_name, [d[1] for d in done]),
-            np.concatenate(finished))
+            np.flatnonzero(mask.cpu().numpy()))
 
 
-def grey_evolve_ensemble_robust_sharded(mesh: Mesh, states, forcings,
+def grey_evolve_ensemble_robust_sharded(mesh, states, forcings,
                                         p_interface, p_centre_col,
                                         flux_thresh, axis_name='data',
                                         finish_repeats: int = 8,
@@ -166,7 +184,7 @@ def grey_evolve_ensemble_robust_sharded(mesh: Mesh, states, forcings,
 # real gas: bands on the mesh (tp)
 # --------------------------------------------------------------------------
 
-def shard_bands(mesh: Mesh, axis_name, ba: prg.BandArrays,
+def shard_bands(mesh, axis_name, ba: prg.BandArrays,
                 cache: prg.TransmissionCache, F_star_factor, delta):
     """Cut the band axis of the band arrays, the transmission cache, the
     stellar factor ([..., n_bands]) and ``delta`` into contiguous slices
@@ -177,7 +195,8 @@ def shard_bands(mesh: Mesh, axis_name, ba: prg.BandArrays,
     ``lw_list`` remapped to local indices, and their rows of the cache's
     [L, ...] fields.  A shard without a long-wave band keeps none.
 
-    :return: per-shard lists (bas, caches, F_star_factors, deltas).
+    :return: lists over the local shards (bas, caches, F_star_factors,
+        deltas).
     """
     n = mesh.shape[axis_name]
     nb = ba.idx.shape[0]
@@ -187,7 +206,7 @@ def shard_bands(mesh: Mesh, axis_name, ba: prg.BandArrays,
     m = nb // n
     lw = ba.lw_list
     out = ([], [], [], [])
-    for i, dev in zip(col.axis_index(mesh, axis_name), mesh.flat_devices):
+    for i, dev in zip(col.axis_index(mesh, axis_name), mesh.local_devices):
         lo, hi = i * m, (i + 1) * m
         own = (lw >= lo) & (lw < hi)
 
@@ -217,31 +236,32 @@ def shard_bands(mesh: Mesh, axis_name, ba: prg.BandArrays,
     return out
 
 
-def real_gas_net_fn_band_sharded(mesh: Mesh, axis_name, T_gs, caches, bas,
+def real_gas_net_fn_band_sharded(mesh, axis_name, T_gs, caches, bas,
                                  F_star_factors, deltas):
     """The march's net flux function with the bands sharded along
     ``axis_name`` of a 1-D ``mesh`` (the band shards of one data row):
-    T [B, nz-1, 1] on the mesh's first device -> (net [B, nz, 1],
-    net_diff [B, nz-1, 1]) there.  Each shard computes its bands' partial
-    ``real_gas_net_and_diff_cached`` on its own device, and ``psum`` adds
-    the partials in shard order: deterministic, but not bit-equal to the
-    one-device band sum.
+    T [B, nz-1, 1] on the first local device -> (net [B, nz, 1],
+    net_diff [B, nz-1, 1]) there.  Each local shard computes its bands'
+    partial ``real_gas_net_and_diff_cached`` on its own device, and
+    ``psum`` adds the partials in shard order (the net and its difference
+    in one collective): deterministic, but not bit-equal to the one-device
+    band sum.
 
-    :param T_gs, caches, bas, F_star_factors, deltas: per-shard lists
-        (:func:`shard_bands`, and the ground temperatures [B] on every
-        shard's device).
+    :param T_gs, caches, bas, F_star_factors, deltas: lists over the local
+        shards (:func:`shard_bands`, and the ground temperatures [B] on
+        every shard's device).
     """
     col.check_on_mesh(mesh, list(zip(T_gs, caches, bas, F_star_factors,
                                      deltas)), 'band shard')
-    devs = mesh.flat_devices
+    devs = mesh.local_devices
     shards = list(zip(devs, T_gs, caches, bas, F_star_factors, deltas))
 
     def net_fn(T):
         parts = [prg.real_gas_net_and_diff_cached(T[..., 0].to(d), *rest)
                  for d, *rest in shards]
-        net = col.psum(mesh, axis_name, [p[0] for p in parts])[0]
-        diff = col.psum(mesh, axis_name, [p[1] for p in parts])[0]
-        return net[..., None], diff[..., None]
+        nz = parts[0][0].shape[-1]
+        both = col.psum(mesh, axis_name, [torch.cat(p, -1) for p in parts])[0]
+        return both[..., :nz, None], both[..., nz:, None]
     return net_fn
 
 
@@ -249,7 +269,7 @@ def real_gas_net_fn_band_sharded(mesh: Mesh, axis_name, T_gs, caches, bas,
 # real-gas ensembles: dp, and dp x tp
 # --------------------------------------------------------------------------
 
-def real_gas_evolve_ensemble_sharded(mesh: Mesh, states, F_scales, T_gs,
+def real_gas_evolve_ensemble_sharded(mesh, states, F_scales, T_gs,
                                      tau_interface, ba, F_star_factor, delta,
                                      p_interface, p_centre_col, flux_thresh,
                                      member_axis='data', band_axis=None,
@@ -264,17 +284,19 @@ def real_gas_evolve_ensemble_sharded(mesh: Mesh, states, F_scales, T_gs,
     shard folds its own members' caches.
 
     ``band_axis='x'`` (dp x tp) on a mesh of the two axes: each
-    ``member_axis`` row marches its members once, on the row's first
+    ``member_axis`` row marches its members once, on the row's first local
     device, with the net flux of each step summed over the row's band
     shards (:func:`real_gas_net_fn_band_sharded`); every row runs its own
-    controller on that summed flux.
+    controller on that summed flux (on a process mesh, every rank of the
+    row runs it, on the same values).
 
     :param march_kw: the other keywords of ``real_gas_evolve_ensemble``
         (``convective_adjust``, ``t_end``, ``max_steps``, ``check_every``,
         ...).
     :param telemetry: optional dict; gets ``iterations``, the lock-step
-        iterations of each march (a shard's for dp, a row's for dp x tp).
-    :return: (states, EquilibriumInfo) in member order on the mesh's first
+        iterations of each local march (a shard's for dp, a row's for
+        dp x tp).
+    :return: (states, EquilibriumInfo) in member order on the first local
         device.
     """
     march_kw = dict(march_kw, p_descending=False)
@@ -321,26 +343,28 @@ def real_gas_evolve_ensemble_sharded(mesh: Mesh, states, F_scales, T_gs,
     st_s = col.shard_members(mesh, member_axis, states)
     sc_s = col.shard_members(mesh, member_axis, F_scales)
     tg_s = col.shard_members(mesh, member_axis, T_gs)
-    devs = mesh.flat_devices
-    rows = col.axis_lines(mesh, band_axis)       # member block order
-    fns = []
-    for line in rows:
-        row_mesh = Mesh([devs[k] for k in line], (band_axis,))
+    devs = mesh.local_devices
+    pos = {k: i for i, k in enumerate(mesh.local_shards)}
+    fns, lead = [], []                   # one march a row, in member order
+    for line, row_mesh in col.local_lines(mesh, band_axis):
+        own = [pos[k] for k in line if k in pos]
         fns.append(real_gas_net_fn_band_sharded(
-            row_mesh, band_axis, [tg_s[k] for k in line],
-            [cache_s[k] for k in line], [ba_s[k] for k in line],
-            [Fs_s[k][None, :] * sc_s[k][:, None] for k in line],
-            [delta_s[k] for k in line]))
-    lead = [line[0] for line in rows]
+            row_mesh, band_axis, [tg_s[i] for i in own],
+            [cache_s[i] for i in own], [ba_s[i] for i in own],
+            [Fs_s[i][None, :] * sc_s[i][:, None] for i in own],
+            [delta_s[i] for i in own]))
+        lead.append(own[0])
     flux_thresh = _per_shard(mesh, member_axis, flux_thresh)
     outs, iterations = column.evolve_to_equilibrium_sharded(
-        [st_s[k] for k in lead], fns,
-        [p_interface.to(devs[k], copy=True) for k in lead],
-        [p_centre_col.to(devs[k], copy=True) for k in lead],
-        flux_thresh=([flux_thresh[k] for k in lead]
+        [st_s[i] for i in lead], fns,
+        [p_interface.to(devs[i], copy=True) for i in lead],
+        [p_centre_col.to(devs[i], copy=True) for i in lead],
+        flux_thresh=([flux_thresh[i] for i in lead]
                      if isinstance(flux_thresh, list) else flux_thresh),
         **march_kw)
     _record(telemetry, iterations=iterations)
-    lead_mesh = Mesh([devs[k] for k in lead], (member_axis,))
+    # the rows' leads: the line along the member axis through the first
+    # local shard
+    _, lead_mesh = col.local_lines(mesh, member_axis)[0]
     return (col.gather_members(lead_mesh, member_axis, [o[0] for o in outs]),
             col.gather_members(lead_mesh, member_axis, [o[1] for o in outs]))

@@ -5,9 +5,12 @@ The reference's ghost-cell boundary conditions (shallow_water.py:393-444 of
 the NumPy original) become a one-row halo exchange between x-neighbouring
 shards (``collectives.ppermute``); the global reductions (the CFL max, the
 El Nino boundary-average wind closure) become ``pmax``/``psum`` over the
-mesh axis.  One process drives every shard, as JAX's ``shard_map`` does
-(``parallel/mesh.py``); every per-step scalar stays on the device, and a run
-reads one value back, ``ok``, at its end.
+mesh axis.  Each composition runs unchanged on either kind of mesh
+(``parallel/mesh.py``): one process driving every shard, or one rank a
+shard with the collectives through ``torch.distributed``; its loops go over
+the mesh's local shards.  Every per-step scalar stays on the device (on a
+process mesh every rank computes the same dt from the same ``pmax``), and a
+run reads one value back, ``ok``, at its end.
 
 Representation (plain-stencil paths): shards hold interior-x blocks
 [nx_i/P, ny] (1-D) or interior blocks [nx_i/Px, ny_i/Py] (2-D), and rebuild
@@ -52,7 +55,6 @@ import torch
 from ..models import shallow_water as sw
 from ..ops import stencils
 from . import collectives as col
-from .mesh import Mesh
 
 
 def _ring_perms(n):
@@ -79,8 +81,8 @@ def _pad_axis(mesh, mesh_axis, fs, boundary, array_axis, wall_value=None):
 
     def wall(own):
         return own if wall_value is None else torch.full_like(own, wall_value)
-    from_lo = col.ppermute(mesh, mesh_axis, [edge[1](f) for f in fs], fwd)
-    from_hi = col.ppermute(mesh, mesh_axis, [edge[0](f) for f in fs], bwd)
+    from_lo, from_hi = col.ppermutes(mesh, mesh_axis, [
+        ([edge[1](f) for f in fs], fwd), ([edge[0](f) for f in fs], bwd)])
     out = []
     for f, i, lo, hi in zip(fs, col.axis_index(mesh, mesh_axis), from_lo,
                             from_hi):
@@ -148,8 +150,8 @@ def _fix_corners_periodic_y_2d(mesh, fps, fs, ax_x, ax_y):
     fwd, bwd = _ring_perms(n_y)
 
     def fix_side(xi, xg, edge):
-        from_hi = col.ppermute(mesh, ax_y, [f[xi, -1] for f in fs], fwd)
-        from_lo = col.ppermute(mesh, ax_y, [f[xi, 0] for f in fs], bwd)
+        from_hi, from_lo = col.ppermutes(mesh, ax_y, [
+            ([f[xi, -1] for f in fs], fwd), ([f[xi, 0] for f in fs], bwd)])
         for fp, i, j, hi, lo in zip(fps, is_, js, from_hi, from_lo):
             if i == edge and j == 0:          # j=0 <- j=n_y-1
                 fp[xg, 0] = hi
@@ -197,18 +199,19 @@ def _scheme_step(solver, linear, hp, up, vp, f_cor_pad, h_base_pad, g,
                                     [0])
 
 
-def make_sharded_step(mesh: Mesh, axis_name='x', solver='richtmyer',
+def make_sharded_step(mesh, axis_name='x', solver='richtmyer',
                       linear=False, bx='periodic', by='walls', wind_type=None,
                       target_courant=0.1):
-    """Build the sharded step: a function of per-shard lists (the shard
-    values) and replicated 0-d tensors on the first shard's device.
+    """Build the sharded step: a function of lists over the local shards
+    (the shard values) and replicated 0-d tensors on the first local
+    shard's device.
 
     ``step(hs, us, vs, t, dt_prev, ok, dt0, f_cor_pad, h_base_pad, r_int, g,
     h_mean, dx, dy, wind_gamma, wind_tau0, wind_fluct, east_w, west_w)``
     returns ``(hs, us, vs, t + dt, dt, ok)``; ``ok`` is the carried abort
     flag and a step freezes on it.
     """
-    devs = mesh.flat_devices
+    devs = mesh.local_devices
 
     def step(hs, us, vs, t, dt_prev, ok, dt0, f_cor_pad, h_base_pad, r_int,
              g, h_mean, dx, dy, wind_gamma, wind_tau0, wind_fluct, east_w,
@@ -246,16 +249,14 @@ def make_sharded_step(mesh: Mesh, axis_name='x', solver='richtmyer',
             else:
                 # BC-consistent h for the boundary averages: y ghosts
                 # refreshed, x ghost contributions folded into the weights
+                # the four masked sums travel as one [4] psum (each
+                # element added in index order, as four psums would)
                 h_bc = [_apply_y_bc(*f, by)[0] for f in new]
-                h_east = (col.psum(mesh, axis_name, [torch.sum(h * w) for h, w
-                                                     in zip(h_bc, east_w)])[0]
-                          / col.psum(mesh, axis_name,
-                                     [torch.sum(w) for w in east_w])[0])
-                h_west = (col.psum(mesh, axis_name, [torch.sum(h * w) for h, w
-                                                     in zip(h_bc, west_w)])[0]
-                          / col.psum(mesh, axis_name,
-                                     [torch.sum(w) for w in west_w])[0])
-                forced = wind_gamma * (h_east - h_west)
+                sums = col.psum(mesh, axis_name, [torch.stack([
+                    torch.sum(h * e), torch.sum(e), torch.sum(h * w),
+                    torch.sum(w)]) for h, e, w in zip(h_bc, east_w, west_w)])
+                s4 = sums[0]
+                forced = wind_gamma * (s4[0] / s4[1] - s4[2] / s4[3])
             wind_dt = _wind_stress(wind_type, t, wind_tau0, wind_fluct,
                                    forced) * dt
             for f, dev in zip(new, devs):
@@ -304,7 +305,7 @@ class ShardedShallowWater:
     it, False runs the plain stencils.
     """
 
-    def __init__(self, world: sw.ShallowWater, mesh: Mesh, axis_name='x',
+    def __init__(self, world: sw.ShallowWater, mesh, axis_name='x',
                  use_kernel='auto'):
         self.world = world
         self.mesh = mesh
@@ -346,9 +347,11 @@ class ShardedShallowWater:
                              f'{n_shards} shards')
         self.n_shards = n_shards
         self.local_nx = lnx = nxi // n_shards
-        self.devices = mesh.flat_devices
+        #: the local shards' devices, and their x blocks
+        self.devices = mesh.local_devices
         self.lead = self.devices[0]
-        blocks = [slice(b * lnx, (b + 1) * lnx) for b in range(n_shards)]
+        x_idx = col.axis_index(mesh, axis_name)
+        blocks = [slice(b * lnx, (b + 1) * lnx) for b in x_idx]
         self._blocks = blocks
 
         # El Nino boundary-average masks folded onto interior-x cells: every
@@ -372,7 +375,7 @@ class ShardedShallowWater:
             return
         # per-shard padded static geometry: block b covers global ghost-grid
         # rows [b*local, b*local + local + 1]
-        pad = [slice(b * lnx, b * lnx + lnx + 2) for b in range(n_shards)]
+        pad = [slice(b * lnx, b * lnx + lnx + 2) for b in x_idx]
         shard = lambda a, sl: [world._tensor(a[s]).to(d)  # noqa: E731
                                for s, d in zip(sl, self.devices)]
         self.f_cor_pad = shard(world.f_coriolis, pad)
@@ -437,7 +440,7 @@ class ShardedShallowWater:
 
     def _split(self, f):
         """Interior-x blocks [local_nx, ny] of a full field, copied onto the
-        shards' devices."""
+        local shards' devices."""
         return [f[1:-1][b].to(d, copy=True)
                 for b, d in zip(self._blocks, self.devices)]
 
@@ -465,9 +468,12 @@ class ShardedShallowWater:
         return self._gather_commit(st, hs, us, vs, t, dt, ok)
 
     def _set_ghosts(self, bufs):
-        """Fill the two x ghost rows of every shard's [3, lnx+2, ny] buffer,
-        all ny cells of h, u and v: from the ring neighbours' edge rows, or
-        at the global walls the shard's own edge row (h, v) and zero (u)."""
+        """Fill the two x ghost rows of every local shard's [3, lnx+2, ny]
+        buffer, all ny cells of h, u and v: from the ring neighbours' edge
+        rows (both directions in one exchange), or at the global walls the
+        shard's own edge row (h, v) and zero (u).  The ghost rows are not
+        contiguous: a process mesh receives into a staging row and copies
+        it in."""
         mesh, ax, n, lnx = self.mesh, self.axis_name, self.n_shards, \
             self.local_nx
         first = [b[:, 1] for b in bufs]
@@ -476,13 +482,11 @@ class ShardedShallowWater:
         bot = [b[:, lnx + 1] for b in bufs]
         if self.world.boundary_type['x'] == 'periodic':
             fwd, bwd = _ring_perms(n)
-            col.ppermute(mesh, ax, last, fwd, out=top)
-            col.ppermute(mesh, ax, first, bwd, out=bot)
+            col.ppermutes(mesh, ax, [(last, fwd, top), (first, bwd, bot)])
             return
-        col.ppermute(mesh, ax, last, [(i, i + 1) for i in range(n - 1)],
-                     out=top)
-        col.ppermute(mesh, ax, first, [(i + 1, i) for i in range(n - 1)],
-                     out=bot)
+        col.ppermutes(mesh, ax, [
+            (last, [(i, i + 1) for i in range(n - 1)], top),
+            (first, [(i + 1, i) for i in range(n - 1)], bot)])
         idx = col.axis_index(mesh, ax)
         for b, i in zip(bufs, idx):
             if i == 0:
@@ -493,7 +497,7 @@ class ShardedShallowWater:
                 b[1, lnx + 1].zero_()
 
     def _run_kernel(self, nt, target_courant):
-        """nt steps on the fused kernel (K6, ``bx='given'``), per shard
+        """nt steps on the fused kernel (K6, ``bx='given'``), per local shard
         double-buffered: step k reads the buffers k mod 2 (their ghost rows
         just filled by the halo) and writes the others."""
         wld = self.world
@@ -548,7 +552,7 @@ class ShardedShallowWater:
                     ui, vi = b[1, 1:-1, 1:-1], b[2, 1:-1, 1:-1]
                     max2[i] = torch.max(ui * ui + vi * vi)
             t = t + dt
-        #: each shard's max(u^2+v^2) over its interior after the run
+        #: each local shard's max(u^2+v^2) over its interior after the run
         self.max2 = max2
         final = bufs[nt % 2]
         return self._gather_commit(st, *([b[k, 1:-1] for b in final]
@@ -556,11 +560,12 @@ class ShardedShallowWater:
 
     def _gather_commit(self, st, hs, us, vs, t, dt, ok):
         """The shards' interior-x blocks, in x order, with copies of the
-        edge rows where the global x ghost rows go, committed."""
+        edge rows where the global x ghost rows go, committed (on a process
+        mesh by every rank, the blocks gathered over the mesh)."""
         dev = self.world.device
 
         def gather(fs):
-            f = torch.cat([x.to(dev) for x in fs], 0)
+            f = torch.cat(col.fetch_shards(self.mesh, fs), 0).to(dev)
             return torch.cat([f[:1], f, f[-1:]], 0)
         return _commit(self.world, st, gather(hs), gather(us), gather(vs),
                        t, dt, ok)
@@ -570,7 +575,16 @@ class ShardedShallowWater:
 # members on 'data' x the x decomposition on 'x' (dp x sp)
 # --------------------------------------------------------------------------
 
-def make_batched_sharded_step(mesh: Mesh, data_axis='data', axis_name='x',
+def _row_shards(mesh, axis_name):
+    """For each line along ``axis_name`` holding a local shard: (its flat
+    shard indices, its 1-D mesh, the positions of its local shards in the
+    mesh's local lists)."""
+    pos = {k: i for i, k in enumerate(mesh.local_shards)}
+    return [(line, line_mesh, [pos[k] for k in line if k in pos])
+            for line, line_mesh in col.local_lines(mesh, axis_name)]
+
+
+def make_batched_sharded_step(mesh, data_axis='data', axis_name='x',
                               solver='richtmyer', linear=False, bx='periodic',
                               by='walls', wind_type=None,
                               target_courant=0.1):
@@ -585,49 +599,49 @@ def make_batched_sharded_step(mesh: Mesh, data_axis='data', axis_name='x',
     g, h_mean, dx, dy, wind_gamma, wind_tau0, wind_fluct, east_w, west_w)``
     returns ``(hs, us, vs, t + dt, dt, ok)``:
 
-    * ``hs, us, vs``: per-shard lists (the mesh's row-major order) of
-      [m, nx_i / n_x, ny], the m members of the shard's data row;
-    * ``t, dt_prev, ok``: per-row lists of [m] tensors on each row's first
-      device (rows in ``data_axis`` order);
-    * ``f_cor_pad`` to ``r_int``, ``east_w``, ``west_w``: per-shard lists,
-      as :func:`make_sharded_step` takes them; the rest 0-d tensors.
+    * ``hs, us, vs``: lists over the local shards of [m, nx_i / n_x, ny],
+      the m members of the shard's data row;
+    * ``t, dt_prev, ok``: lists over the local rows (in ``data_axis``
+      order) of [m] tensors on each row's first local device;
+    * ``f_cor_pad`` to ``r_int``, ``east_w``, ``west_w``: lists over the
+      local shards, as :func:`make_sharded_step` takes them; the rest 0-d
+      tensors.
     """
     if set(mesh.axis_names) != {data_axis, axis_name} or len(
             mesh.axis_names) != 2:
         raise ValueError(f'the batched step needs a mesh of the axes '
                          f'({data_axis!r}, {axis_name!r}), got '
                          f'{mesh.axis_names}')
-    devs = mesh.flat_devices
-    rows = col.axis_lines(mesh, axis_name)
-    row_steps = [make_sharded_step(Mesh([devs[k] for k in line],
-                                        (axis_name,)), axis_name,
-                                   solver=solver, linear=linear, bx=bx,
-                                   by=by, wind_type=wind_type,
+    devs = mesh.local_devices
+    rows = _row_shards(mesh, axis_name)
+    row_steps = [make_sharded_step(line_mesh, axis_name, solver=solver,
+                                   linear=linear, bx=bx, by=by,
+                                   wind_type=wind_type,
                                    target_courant=target_courant)
-                 for line in rows]
+                 for _, line_mesh, _ in rows]
 
     def step(hs, us, vs, t, dt_prev, ok, dt0, f_cor_pad, h_base_pad, r_int,
              g, h_mean, dx, dy, wind_gamma, wind_tau0, wind_fluct, east_w,
              west_w):
         col.check_on_mesh(mesh, list(zip(hs, us, vs)), 'batched step shard')
-        out = ([None] * mesh.size, [None] * mesh.size, [None] * mesh.size)
+        out = ([None] * len(hs), [None] * len(hs), [None] * len(hs))
         carried = ([], [], [])
-        for r, (line, row_step) in enumerate(zip(rows, row_steps)):
-            lead = devs[line[0]]
+        for r, ((_, _, own), row_step) in enumerate(zip(rows, row_steps)):
+            lead = devs[own[0]]
             sc = [x.to(lead) for x in (dt0, g, h_mean, dx, dy, wind_gamma,
                                        wind_tau0, wind_fluct)]
 
             def pick(xs):
-                return [xs[k] for k in line]
+                return [xs[i] for i in own]
             members = [row_step(
-                [hs[k][j] for k in line], [us[k][j] for k in line],
-                [vs[k][j] for k in line], t[r][j], dt_prev[r][j], ok[r][j],
+                [hs[i][j] for i in own], [us[i][j] for i in own],
+                [vs[i][j] for i in own], t[r][j], dt_prev[r][j], ok[r][j],
                 sc[0], pick(f_cor_pad), pick(h_base_pad), pick(r_int),
                 *sc[1:], pick(east_w), pick(west_w))
-                for j in range(hs[line[0]].shape[0])]
+                for j in range(hs[own[0]].shape[0])]
             for f in range(3):
-                for i, k in enumerate(line):
-                    out[f][k] = torch.stack([m[f][i] for m in members])
+                for q, i in enumerate(own):
+                    out[f][i] = torch.stack([m[f][q] for m in members])
                 carried[f].append(torch.stack([m[3 + f] for m in members]))
         return (*out, *carried)
 
@@ -648,18 +662,19 @@ class ShardedShallowWaterEnsemble:
         included); B divisible by the ``data_axis`` size.
     """
 
-    def __init__(self, world: sw.ShallowWater, mesh: Mesh, h, u, v,
+    def __init__(self, world: sw.ShallowWater, mesh, h, u, v,
                  data_axis='data', axis_name='x'):
         self.world, self.mesh = world, mesh
         self.data_axis, self.axis_name = data_axis, axis_name
-        devs = mesh.flat_devices
-        self.rows = col.axis_lines(mesh, axis_name)
-        # one x-sharded helper a row: its shards' geometry and wind scalars
-        self.helpers = [ShardedShallowWater(
-            world, Mesh([devs[k] for k in line], (axis_name,)), axis_name,
-            use_kernel=False) for line in self.rows]
+        devs = mesh.local_devices
+        self.rows = _row_shards(mesh, axis_name)
+        # one x-sharded helper a local row: its shards' geometry and wind
+        # scalars
+        self.helpers = [ShardedShallowWater(world, line_mesh, axis_name,
+                                            use_kernel=False)
+                        for _, line_mesh, _ in self.rows]
         self.solver = self.helpers[0].solver
-        n_rows = len(self.rows)
+        n_rows = mesh.shape[data_axis]
         if h.shape[0] % n_rows:
             raise ValueError(f'{h.shape[0]} members not divisible by '
                              f'{n_rows} rows along {data_axis!r}')
@@ -668,24 +683,26 @@ class ShardedShallowWaterEnsemble:
         st = world.state
         self.lead = devs[0]
         self.t, self.dt, self.ok = (
-            [x.to(devs[line[0]]).expand(m).clone() for line in self.rows]
+            [x.to(devs[own[0]]).expand(m).clone() for _, _, own in self.rows]
             for x in (st.t, st.dt, st.ok))
-        self.fields = []                   # h, u, v: per-shard lists
+        data_idx = col.shard_axis_index(mesh, data_axis)
+        self.fields = []                   # h, u, v: local-shard lists
         for f in (h, u, v):
-            per = [None] * mesh.size
-            for r, (line, hp) in enumerate(zip(self.rows, self.helpers)):
+            per = [None] * len(devs)
+            for (line, _, own), hp in zip(self.rows, self.helpers):
+                r = data_idx[line[0]]
                 block = f[r * m:(r + 1) * m, 1:-1]
-                for k, rows_x in zip(line, hp._blocks):
-                    per[k] = block[:, rows_x].to(
-                        devs[k], copy=True,
+                for i, rows_x in zip(own, hp._blocks):
+                    per[i] = block[:, rows_x].to(
+                        devs[i], copy=True,
                         memory_format=torch.contiguous_format)
             self.fields.append(per)
 
     def _per_shard(self, name):
-        out = [None] * self.mesh.size
-        for line, hp in zip(self.rows, self.helpers):
-            for k, x in zip(line, getattr(hp, name)):
-                out[k] = x
+        out = [None] * len(self.mesh.local_shards)
+        for (_, _, own), hp in zip(self.rows, self.helpers):
+            for i, x in zip(own, getattr(hp, name)):
+                out[i] = x
         return out
 
     def run(self, nt, target_courant=0.1):
@@ -693,7 +710,7 @@ class ShardedShallowWaterEnsemble:
         is frozen (its ``ok`` False); nothing is raised.
 
         :return: (h, u, v [B, nx, ny] with the global boundary conditions,
-            t, dt, ok [B]) on the mesh's first device.
+            t, dt, ok [B]) on the first local device.
         """
         wld = self.world
         hp0 = self.helpers[0]
@@ -717,21 +734,30 @@ class ShardedShallowWaterEnsemble:
 
     def gather(self):
         """The members' fields [B, nx, ny] (boundary conditions applied)
-        and t, dt, ok [B], in member order on the mesh's first device."""
+        and t, dt, ok [B], in member order on the first local device (on a
+        process mesh, every rank gets them all)."""
         bx, by = self.world.boundary_type['x'], self.world.boundary_type['y']
+        every = [col.fetch_shards(self.mesh, f) for f in self.fields]
+        lines = col.axis_lines(self.mesh, self.axis_name)    # data order
         full = []
-        for line in self.rows:
-            block = [torch.cat([f[k].to(self.lead) for k in line], 1)
-                     for f in self.fields]                 # [m, nx_i, ny]
+        for line in lines:
+            block = [torch.cat([f[k] for k in line], 1)
+                     for f in every]                      # [m, nx_i, ny]
             for j in range(block[0].shape[0]):
                 h, u, v = (torch.cat([b[j, :1], b[j], b[j, -1:]], 0)
                            for b in block)
                 full.append(stencils.apply_boundary_conditions(h, u, v, bx,
                                                                by))
         h, u, v = (torch.stack(x) for x in zip(*full))
-        t, dt, ok = (torch.cat([x.to(self.lead) for x in xs])
-                     for xs in (self.t, self.dt, self.ok))
-        return h, u, v, t, dt, ok
+
+        def rows(xs):
+            per = [None] * len(self.mesh.local_shards)
+            for (_, _, own), x in zip(self.rows, xs):
+                for i in own:
+                    per[i] = x
+            return torch.cat(col.fetch_shards(self.mesh, per,
+                                              [line[0] for line in lines]))
+        return h, u, v, rows(self.t), rows(self.dt), rows(self.ok)
 
 
 # --------------------------------------------------------------------------
@@ -740,14 +766,14 @@ class ShardedShallowWaterEnsemble:
 
 def make_sharded_step_2d(ax_x='x', ax_y='y', solver='richtmyer',
                          linear=False, bx='periodic', by='walls',
-                         wind_type=None, target_courant=0.1, *, mesh: Mesh):
+                         wind_type=None, target_courant=0.1, *, mesh):
     """Sharded step of a 2-D spatial decomposition: shards hold interior
     blocks [nxi/Px, nyi/Py]; both ghost layers are rebuilt every step from
     the halos (y first, then x, so the x halo carries the y ghosts: corners
     from the neighbours' own ghost cells).  Same signature and carried
     ``ok`` as :func:`make_sharded_step`."""
     axes = (ax_x, ax_y)
-    devs = mesh.flat_devices
+    devs = mesh.local_devices
 
     def pad2(fs, wall_u_x=False, wall_v_y=False):
         fs = _pad_axis(mesh, ax_y, fs, by, 1,
@@ -794,11 +820,11 @@ def make_sharded_step_2d(ax_x='x', ax_y='y', solver='richtmyer',
             if wind_type == 'seasonal':
                 forced = None
             else:
-                def mean(ws):
-                    return (greduce(col.psum, [torch.sum(f[0] * w)
-                                               for f, w in zip(new, ws)])
-                            / greduce(col.psum, [torch.sum(w) for w in ws]))
-                forced = wind_gamma * (mean(east_w) - mean(west_w))
+                # the four masked sums as one [4] psum a mesh axis
+                s4 = greduce(col.psum, [torch.stack([
+                    torch.sum(f[0] * e), torch.sum(e), torch.sum(f[0] * w),
+                    torch.sum(w)]) for f, e, w in zip(new, east_w, west_w)])
+                forced = wind_gamma * (s4[0] / s4[1] - s4[2] / s4[3])
             wind_dt = _wind_stress(wind_type, t, wind_tau0, wind_fluct,
                                    forced) * dt
             for f, dev in zip(new, devs):
@@ -820,7 +846,7 @@ class ShardedShallowWater2D:
     ``richtmyer`` scheme, with a UserWarning (the fused kernel has no halo
     mode in y)."""
 
-    def __init__(self, world: sw.ShallowWater, mesh: Mesh, ax_x='x', ax_y='y'):
+    def __init__(self, world: sw.ShallowWater, mesh, ax_x='x', ax_y='y'):
         self.world = world
         self.mesh = mesh
         self.ax_x, self.ax_y = ax_x, ax_y
@@ -840,9 +866,9 @@ class ShardedShallowWater2D:
             raise ValueError(f'interior {nxi}x{nyi} not divisible by '
                              f'{px}x{py} shards')
         self.lx, self.ly = lx, ly = nxi // px, nyi // py
-        self.devices = mesh.flat_devices
+        self.devices = mesh.local_devices
         self.lead = self.devices[0]
-        # shard k holds x block i, y block j
+        # local shard k holds x block i, y block j
         self._ij = list(zip(col.axis_index(mesh, ax_x),
                             col.axis_index(mesh, ax_y)))
 
@@ -922,9 +948,12 @@ class ShardedShallowWater2D:
                 self.wind_tau0, self.wind_fluct, self.east_w, self.west_w)
         px, py = self.mesh.shape[self.ax_x], self.mesh.shape[self.ax_y]
 
+        every_ij = list(zip(col.shard_axis_index(self.mesh, self.ax_x),
+                            col.shard_axis_index(self.mesh, self.ax_y)))
+
         def gather(fs):
             grid = [[None] * py for _ in range(px)]
-            for (i, j), f in zip(self._ij, fs):
+            for (i, j), f in zip(every_ij, col.fetch_shards(self.mesh, fs)):
                 grid[i][j] = f.to(dev)
             f = torch.cat([torch.cat(row, 1) for row in grid], 0)
             # edge padding; the boundary conditions below rewrite every ghost

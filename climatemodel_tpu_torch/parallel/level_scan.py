@@ -10,15 +10,19 @@ flows shard to shard (classic block-scan pipeline):
 1. each shard runs the associative scan over its block (in
    ``lax.associative_scan``'s order) and reduces the block to its affine
    summary ``(A[-1], B[-1])``;
-2. the carry ``x`` enters at shard 0 and hops down the shard chain, shard k
-   forwarding ``A_tot * x + B_tot`` to shard k+1: ``n_shards - 1``
-   sequential hops;
-3. each shard applies its received carry to its prefix scan, ``A x + B``.
+2. the carry ``x`` enters at shard 0 and passes down the shard chain, shard
+   k forwarding ``A_tot * x + B_tot`` to shard k+1.  Here the summaries
+   travel in one ``all_gather`` over the line and each shard folds the
+   carry through the blocks before its own, in chain order: the same
+   arithmetic as the JAX package's ``n_shards - 1`` sequential hops, in one
+   collective;
+3. each shard applies its carry to its prefix scan, ``A x + B``, and the
+   blocks are gathered in level order.
 
-Step 2 is O(n_shards) latency but moves one interface row per hop; the
-O(n_levels) scan work of steps 1 and 3 stays parallel.  The result equals
-the one-device scan up to the float reassociation of the block boundaries.
-No kernel: the JAX package computes this with jnp too.
+The O(n_levels) scan work of steps 1 and 3 stays parallel.  The result
+equals the one-device scan up to the float reassociation of the block
+boundaries.  It runs on either kind of mesh (``parallel/mesh.py``).  No
+kernel: the JAX package computes this with jnp too.
 """
 from __future__ import annotations
 
@@ -60,12 +64,15 @@ def sharded_affine_scan(a, b, x0, mesh, axis_name, reverse=False,
         b = torch.flip(b, (0,))
     x0 = torch.broadcast_to(torch.as_tensor(x0, device=a.device),
                             a.shape[1:]).to(a.dtype)
-    devs = mesh.flat_devices
+    devs = mesh.local_devices
     n_lev = n // n_dev
+    levels = col.axis_index(mesh, axis_name)
     if batch_axis_name is None:
-        bat = [0] * mesh.size
+        bat = [0] * len(devs)
+        bat_every = [0] * mesh.size
     else:
         bat = col.axis_index(mesh, batch_axis_name)
+        bat_every = col.shard_axis_index(mesh, batch_axis_name)
         n_bat = a.shape[1] // int(mesh.shape[batch_axis_name])
 
     def block(x, level, j):
@@ -73,20 +80,25 @@ def sharded_affine_scan(a, b, x0, mesh, axis_name, reverse=False,
         return x if batch_axis_name is None else \
             x[:, j * n_bat:(j + 1) * n_bat]
 
+    scans = [_associative_scan(block(a, lev, j).to(d, copy=True),
+                               block(b, lev, j).to(d, copy=True))
+             for lev, j, d in zip(levels, bat, devs)]
+    # every block's summary (A_tot, B_tot), in level order along the line
+    summaries = col.all_gather(mesh, axis_name, [
+        torch.stack([A[-1], B[-1]]) for A, B in scans])
+    done = []
+    for (A, B), lev, j, d, summ in zip(scans, levels, bat, devs, summaries):
+        x = (x0 if batch_axis_name is None else
+             x0[j * n_bat:(j + 1) * n_bat]).to(d)
+        for A_tot, B_tot in summ[:lev]:       # the chain's hops, in order
+            x = A_tot * x + B_tot
+        done.append(A * x + B)
+    every = col.fetch_shards(mesh, done)
     columns = {}          # batch block -> its [n, ...] levels on a's device
     for line in col.axis_lines(mesh, axis_name):
-        j = bat[line[0]]
-        scans = [_associative_scan(block(a, lev, j).to(devs[s], copy=True),
-                                   block(b, lev, j).to(devs[s], copy=True))
-                 for lev, s in enumerate(line)]
-        # the carry down the chain: shard k's x_in is final after hop k
-        x_in = [(x0 if batch_axis_name is None else
-                 x0[j * n_bat:(j + 1) * n_bat]).to(devs[line[0]])]
-        for (A, B), s in zip(scans[:-1], line[1:]):
-            x_in.append((A[-1] * x_in[-1] + B[-1]).to(devs[s]))
+        j = bat_every[line[0]]
         if j not in columns:
-            columns[j] = torch.cat([(A * x + B).to(a.device) for (A, B), x
-                                    in zip(scans, x_in)], 0)
+            columns[j] = torch.cat([every[s].to(a.device) for s in line], 0)
     xs = torch.cat([columns[j] for j in sorted(columns)], 1) \
         if batch_axis_name is not None else columns[0]
     out = torch.cat([x0[None], xs], 0)

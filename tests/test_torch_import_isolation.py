@@ -61,6 +61,7 @@ def test_port_imports_with_jax_blocked():
             'climatemodel_tpu_torch.parallel.halo',
             'climatemodel_tpu_torch.parallel.level_scan',
             'climatemodel_tpu_torch.parallel.ensemble',
+            'climatemodel_tpu_torch.parallel.launch',
             'climatemodel_tpu_torch.native',
             } | {f'climatemodel_tpu_torch.examples.{name}'
                  for name in EXAMPLES}) <= set(MODULES)
@@ -90,7 +91,7 @@ def test_port_sources_never_import_jax():
 
 
 @pytest.mark.parametrize('module', ['mesh', 'collectives', 'halo',
-                                    'level_scan'])
+                                    'level_scan', 'ensemble', 'launch'])
 def test_parallel_module_imports_alone_with_jax_blocked(module):
     """Each ``parallel`` module on its own, in a fresh interpreter with
     ``jax`` and the JAX package blocked."""
