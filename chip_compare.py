@@ -12,8 +12,10 @@ reverse (parent, this, this, parent for two), and builds its kernels from
 its own sources.  Each process prints one JSON line of f32 timings:
 ``lw_walk`` (K1) at the single world's [99, 1] and the headline's [59,
 4096]; the fused step at 2050 x 1026 with walls/walls (K6, the El Nino
-run's configuration) and in its interior mode (K5), and K6 on 16 times the
-cells (8194 x 4098, CUDA events, a 16th of a call).  Without
+run's configuration) and in its interior mode (K5), K6 on 16 times the
+cells (8194 x 4098, CUDA events, a 16th of a call), and chip_smoke's
+``level_scan`` call (``lw_flux_level_sharded`` on the single-controller
+mesh of ``SHARDS`` shards of the card).  Without
 ``--kernels-only`` also 100 El Nino steps under the profiler, 400-step El
 Nino runs (best of 3) and the grey single world's march.  Device times are
 ``torch.profiler`` (CUPTI) sums, call times CUDA events (``chip_smoke``'s
@@ -114,6 +116,14 @@ def worker(root: Path, kernels_only: bool):
         lambda: csl.richtmyer_step(*big_args, bx='walls', by='walls',
                                    out=big_bufs)) / 16
     del big, big_args, big_bufs
+    from climatemodel_tpu_torch.parallel import level_scan as pls
+    from climatemodel_tpu_torch.parallel import mesh as pmesh
+    T, dtau, toa = cs.level_scan_inputs(GreyGas, p_surface_earth,
+                                        cs.LEVEL_SCAN['members'],
+                                        torch.float32, dev)
+    mesh = pmesh.make_mesh(('lev',), devices=[dev] * cs.SHARDS)
+    res['level_scan_sharded'] = times(lambda: pls.lw_flux_level_sharded(
+        T, dtau, toa, mesh, 'lev'))
     if not kernels_only:
         world = cs.sw_world(psw, Omega, R_earth, cs.SW['nx'], cs.SW['ny'],
                             device=dev)

@@ -16,8 +16,7 @@ its walls, the throughput ratios to the unsharded run and each rank's
 kernel launches.  Needs exactly ``chip_smoke.SHARDS`` (4) CUDA devices and
 ``nvcc``; imports no JAX.
 
-    python3 chip_sharded.py            # every phase
-    python3 chip_sharded.py --ranks    # the ranks_* phases only
+    python3 chip_sharded.py
 
 Every phase prints one JSON line; a failed check exits 1 with
 ``chip_sharded: FAILED: ...`` on stderr.  The last lines are the cards'
@@ -415,11 +414,7 @@ def phase_ranks_all(devices):
              f'{failed}')
 
 
-def main(argv):
-    ranks_only = argv == ['--ranks']
-    if argv and not ranks_only:
-        print(f'chip_sharded: unknown arguments {argv}', file=sys.stderr)
-        return 2
+def main():
     try:
         import torch
     except ImportError:
@@ -465,9 +460,6 @@ def main(argv):
     cts.library()
     ccv.library()
     torch.backends.cuda.matmul.allow_tf32 = False
-    if ranks_only:
-        phase_ranks_all(devices)
-        return finish(torch, smi, n)
     k6 = cs.phase_sharded_sw(psw, phalo, pmesh, Omega, R_earth, csl, dev,
                              devices)
     cs.phase_sharded_2d(psw, phalo, pmesh, Omega, R_earth, csl, dev, devices)
@@ -500,7 +492,7 @@ def finish(torch, smi, n):
 
 if __name__ == '__main__':
     try:
-        sys.exit(main(sys.argv[1:]))
+        sys.exit(main())
     except cs.Failed as e:
         print(f'chip_sharded: FAILED: {e}', file=sys.stderr)
         sys.exit(1)

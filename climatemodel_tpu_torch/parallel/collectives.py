@@ -22,8 +22,8 @@ results stay on the shards' devices.
 Aliasing: on a mesh whose devices repeat, ``x.to(device)`` returns the
 sender's own storage.  :func:`ppermute` therefore returns fresh copies, or
 writes into the receivers' buffers with ``copy_`` when given ``out``; the
-reductions return one tensor that the shards of a line share, to be read,
-never written in place.
+reductions and :func:`all_gather` return one tensor that the shards of a
+line share, to be read, never written in place.
 
 A member axis (an ensemble's leading axis) is cut into contiguous blocks
 along one mesh axis or several (:func:`shard_members`), each block a copy of
@@ -54,36 +54,37 @@ def axis_lines(mesh, axis_name):
     return np.moveaxis(idx, ax, -1).reshape(-1, idx.shape[ax]).tolist()
 
 
-def shard_axis_index(mesh, axis_name):
-    """Every shard's index along ``axis_name``, in flat order."""
-    out = [0] * mesh.size
+def axis_index(mesh, axis_name, shards=None):
+    """The index along ``axis_name`` of each of ``shards`` (flat indices;
+    default the local shards), as Python ints (the shard's
+    ``lax.axis_index``; static, as in a traced ``shard_map`` body)."""
+    every = [0] * mesh.size
     for line in axis_lines(mesh, axis_name):
         for i, s in enumerate(line):
-            out[s] = i
-    return out
-
-
-def axis_index(mesh, axis_name):
-    """The index along ``axis_name`` of each local shard, as Python ints
-    (the shard's ``lax.axis_index``; static, as in a traced ``shard_map``
-    body)."""
-    every = shard_axis_index(mesh, axis_name)
-    return [every[k] for k in mesh.local_shards]
+            every[s] = i
+    return [every[k] for k in (mesh.local_shards if shards is None
+                               else shards)]
 
 
 def local_lines(mesh, axis_name):
-    """``(line, line_mesh)`` for each line along ``axis_name`` that holds a
-    local shard: its flat shard indices and the 1-D mesh of its shards
-    along ``axis_name`` (every line of a :class:`Mesh`; the rank's own of
-    a process mesh)."""
-    lines = axis_lines(mesh, axis_name)
-    if _ranks(mesh):
-        me = mesh.local_shards[0]
-        return [(line, mesh.line_mesh(axis_name)) for line in lines
-                if me in line]
-    devs = mesh.flat_devices
-    return [(line, Mesh([devs[k] for k in line], (axis_name,)))
-            for line in lines]
+    """``(line, line_mesh, own)`` for each line along ``axis_name`` that
+    holds a local shard: its flat shard indices, the 1-D mesh of its shards
+    along ``axis_name``, and the positions of its local shards in the
+    mesh's local lists (every line of a :class:`Mesh`; the rank's own of a
+    process mesh)."""
+    pos = {k: i for i, k in enumerate(mesh.local_shards)}
+    out = []
+    for line in axis_lines(mesh, axis_name):
+        own = [pos[k] for k in line if k in pos]
+        if not own:
+            continue
+        if _ranks(mesh):
+            line_mesh = mesh.line_mesh(axis_name)
+        else:
+            line_mesh = Mesh([mesh.flat_devices[k] for k in line],
+                             (axis_name,))
+        out.append((line, line_mesh, own))
+    return out
 
 
 def _own(mesh, xs, what):
@@ -92,7 +93,7 @@ def _own(mesh, xs, what):
         raise ValueError(f'{what}: {len(xs)} shards for a process mesh '
                          f'(one a rank)')
     x = xs[0]
-    if x.device.type != mesh.device.type:
+    if not on_device(x, mesh.device):
         raise ValueError(f'{what}: a {x.device} tensor on a process mesh '
                          f'of {mesh.device}')
     return x
@@ -176,10 +177,7 @@ def _all_gather(x, group):
     n = dist.get_world_size(group)
     flat = x.reshape(-1).contiguous()
     out = torch.empty(n * flat.numel(), dtype=x.dtype, device=x.device)
-    # all_gather_single where torch has it (it deprecates the other name)
-    gather = getattr(dist, 'all_gather_single', None) or \
-        dist.all_gather_into_tensor
-    gather(out, flat, group=group)
+    dist.all_gather_into_tensor(out, flat, group=group)
     return out.view((n,) + tuple(x.shape))
 
 
@@ -225,8 +223,9 @@ def all_gather(mesh, axis_name, xs):
     devs = mesh.flat_devices
     res = [None] * len(xs)
     for line in axis_lines(mesh, axis_name):
+        stacked = torch.stack([xs[q].to(devs[line[0]]) for q in line])
         for s in line:
-            res[s] = torch.stack([xs[q].to(devs[s]) for q in line])
+            res[s] = stacked.to(devs[s])
     return res
 
 
@@ -284,7 +283,7 @@ def member_blocks(mesh, axis_name):
     names = (axis_name,) if isinstance(axis_name, str) else tuple(axis_name)
     blocks = [0] * mesh.size
     for name in names:
-        idx = shard_axis_index(mesh, name)
+        idx = axis_index(mesh, name, range(mesh.size))
         blocks = [b * mesh.shape[name] + i for b, i in zip(blocks, idx)]
     return blocks, math.prod(mesh.shape[n] for n in names)
 

@@ -344,10 +344,8 @@ def real_gas_evolve_ensemble_sharded(mesh, states, F_scales, T_gs,
     sc_s = col.shard_members(mesh, member_axis, F_scales)
     tg_s = col.shard_members(mesh, member_axis, T_gs)
     devs = mesh.local_devices
-    pos = {k: i for i, k in enumerate(mesh.local_shards)}
     fns, lead = [], []                   # one march a row, in member order
-    for line, row_mesh in col.local_lines(mesh, band_axis):
-        own = [pos[k] for k in line if k in pos]
+    for _, row_mesh, own in col.local_lines(mesh, band_axis):
         fns.append(real_gas_net_fn_band_sharded(
             row_mesh, band_axis, [tg_s[i] for i in own],
             [cache_s[i] for i in own], [ba_s[i] for i in own],
@@ -365,6 +363,6 @@ def real_gas_evolve_ensemble_sharded(mesh, states, F_scales, T_gs,
     _record(telemetry, iterations=iterations)
     # the rows' leads: the line along the member axis through the first
     # local shard
-    _, lead_mesh = col.local_lines(mesh, member_axis)[0]
+    _, lead_mesh, _ = col.local_lines(mesh, member_axis)[0]
     return (col.gather_members(lead_mesh, member_axis, [o[0] for o in outs]),
             col.gather_members(lead_mesh, member_axis, [o[1] for o in outs]))

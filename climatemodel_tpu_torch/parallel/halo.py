@@ -575,15 +575,6 @@ class ShardedShallowWater:
 # members on 'data' x the x decomposition on 'x' (dp x sp)
 # --------------------------------------------------------------------------
 
-def _row_shards(mesh, axis_name):
-    """For each line along ``axis_name`` holding a local shard: (its flat
-    shard indices, its 1-D mesh, the positions of its local shards in the
-    mesh's local lists)."""
-    pos = {k: i for i, k in enumerate(mesh.local_shards)}
-    return [(line, line_mesh, [pos[k] for k in line if k in pos])
-            for line, line_mesh in col.local_lines(mesh, axis_name)]
-
-
 def make_batched_sharded_step(mesh, data_axis='data', axis_name='x',
                               solver='richtmyer', linear=False, bx='periodic',
                               by='walls', wind_type=None,
@@ -613,7 +604,7 @@ def make_batched_sharded_step(mesh, data_axis='data', axis_name='x',
                          f'({data_axis!r}, {axis_name!r}), got '
                          f'{mesh.axis_names}')
     devs = mesh.local_devices
-    rows = _row_shards(mesh, axis_name)
+    rows = col.local_lines(mesh, axis_name)
     row_steps = [make_sharded_step(line_mesh, axis_name, solver=solver,
                                    linear=linear, bx=bx, by=by,
                                    wind_type=wind_type,
@@ -667,7 +658,7 @@ class ShardedShallowWaterEnsemble:
         self.world, self.mesh = world, mesh
         self.data_axis, self.axis_name = data_axis, axis_name
         devs = mesh.local_devices
-        self.rows = _row_shards(mesh, axis_name)
+        self.rows = col.local_lines(mesh, axis_name)
         # one x-sharded helper a local row: its shards' geometry and wind
         # scalars
         self.helpers = [ShardedShallowWater(world, line_mesh, axis_name,
@@ -685,7 +676,7 @@ class ShardedShallowWaterEnsemble:
         self.t, self.dt, self.ok = (
             [x.to(devs[own[0]]).expand(m).clone() for _, _, own in self.rows]
             for x in (st.t, st.dt, st.ok))
-        data_idx = col.shard_axis_index(mesh, data_axis)
+        data_idx = col.axis_index(mesh, data_axis, range(mesh.size))
         self.fields = []                   # h, u, v: local-shard lists
         for f in (h, u, v):
             per = [None] * len(devs)
@@ -948,8 +939,9 @@ class ShardedShallowWater2D:
                 self.wind_tau0, self.wind_fluct, self.east_w, self.west_w)
         px, py = self.mesh.shape[self.ax_x], self.mesh.shape[self.ax_y]
 
-        every_ij = list(zip(col.shard_axis_index(self.mesh, self.ax_x),
-                            col.shard_axis_index(self.mesh, self.ax_y)))
+        every = range(self.mesh.size)
+        every_ij = list(zip(col.axis_index(self.mesh, self.ax_x, every),
+                            col.axis_index(self.mesh, self.ax_y, every)))
 
         def gather(fs):
             grid = [[None] * py for _ in range(px)]

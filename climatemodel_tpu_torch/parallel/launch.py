@@ -69,8 +69,8 @@ def reset_launch_counts():
             f'climatemodel_tpu_torch.ops.{name}').reset_launch_counts()
 
 
-def _rank_main(fn, rank, world, device, init_method, axis_names, shape,
-               args_path, timeout_s, results):
+def _rank_main(fn, rank, world, device, init_method, args_path, timeout_s,
+               results):
     import torch.distributed as dist
     try:
         if torch.device(device).type == 'cpu':
@@ -78,8 +78,8 @@ def _rank_main(fn, rank, world, device, init_method, axis_names, shape,
         with open(args_path, 'rb') as f:
             args = pickle.load(f)
         mesh = pmesh.init_process_mesh(
-            axis_names, shape, device=device, init_method=init_method,
-            rank=rank, world_size=world, timeout_s=timeout_s)
+            device=device, init_method=init_method, rank=rank,
+            world_size=world, timeout_s=timeout_s)
         try:
             out = fn(mesh, *args)
             results.put((rank, True, (to_host(out), launch_counts())))
@@ -102,14 +102,14 @@ def _stop(procs):
             p.join(5)
 
 
-def run_ranks(fn, world, *, device='cuda', args=(), axis_names=('x',),
-              shape=None, timeout_s=600):
-    """Run ``fn(mesh, *args)`` on ``world`` spawned ranks, one shard each.
+def run_ranks(fn, world, *, device='cuda', args=(), timeout_s=600):
+    """Run ``fn(mesh, *args)`` on ``world`` spawned ranks, one shard each:
+    ``mesh`` is the 1-D process mesh ``('x',)`` of every rank, and ``fn``
+    builds any other mesh shape over the same ranks itself
+    (``ProcessMesh(axis_names, shape, device=mesh.device)``).
 
     :param device: 'cuda' (one card a rank, NCCL; raises unless there are
         ``world`` cards) or 'cpu' (gloo ranks, one torch thread each).
-    :param axis_names, shape: the process mesh's axes and shape (default:
-        every rank on the first axis).
     :param timeout_s: the limit on the whole run, start-up included, and
         on each collective.
     :return: one ``(result, launch_counts)`` a rank in rank order: ``fn``'s
@@ -134,8 +134,8 @@ def run_ranks(fn, world, *, device='cuda', args=(), axis_names=('x',),
         pickle.dump(tuple(args), f)
     results = ctx.Queue()
     procs = [ctx.Process(target=_rank_main, daemon=True, args=(
-        fn, r, world, device, f'file://{tmp / "rendezvous"}', axis_names,
-        shape, str(tmp / 'args.pkl'), timeout_s, results))
+        fn, r, world, device, f'file://{tmp / "rendezvous"}',
+        str(tmp / 'args.pkl'), timeout_s, results))
         for r in range(world)]
     out = [None] * world
     try:

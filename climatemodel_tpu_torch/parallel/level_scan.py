@@ -72,7 +72,8 @@ def sharded_affine_scan(a, b, x0, mesh, axis_name, reverse=False,
         bat_every = [0] * mesh.size
     else:
         bat = col.axis_index(mesh, batch_axis_name)
-        bat_every = col.shard_axis_index(mesh, batch_axis_name)
+        bat_every = col.axis_index(mesh, batch_axis_name,
+                                   range(mesh.size))
         n_bat = a.shape[1] // int(mesh.shape[batch_axis_name])
 
     def block(x, level, j):

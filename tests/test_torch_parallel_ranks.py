@@ -392,9 +392,29 @@ def test_single_controller_mesh_drives_every_shard():
     assert m.local_shards == [0, 1, 2, 3]
     assert m.local_devices == [CPU] * 4
     lines = pcol.local_lines(m, 'x')
-    assert [line for line, _ in lines] == [[0, 1], [2, 3]]
-    assert [sub.shape for _, sub in lines] == [{'x': 2}, {'x': 2}]
+    assert [line for line, _, _ in lines] == [[0, 1], [2, 3]]
+    assert [sub.shape for _, sub, _ in lines] == [{'x': 2}, {'x': 2}]
+    assert [own for _, _, own in lines] == [[0, 1], [2, 3]]
     assert pcol.axis_index(m, 'data') == [0, 0, 1, 1]
+    assert pcol.axis_index(m, 'x', [3, 0]) == [1, 0]
+
+
+def test_a_rank_refuses_a_tensor_on_another_card():
+    """A process mesh's collectives take only tensors on the rank's own
+    card: one on another card, or on the CPU, raises before any message."""
+    m = object.__new__(pmesh.ProcessMesh)
+    m._init(('x',), np.arange(2), 0, {'x': None}, None,
+            torch.device('cuda', 1))
+
+    def on(device):          # only its device is read before the check
+        return type('T', (), {'device': torch.device(device)})()
+    mine = on('cuda:1')
+    assert pcol._own(m, [mine], 'psum') is mine
+    for other in ('cuda:0', 'cpu'):
+        with pytest.raises(ValueError, match='on a process mesh of cuda:1'):
+            pcol.psum(m, 'x', [on(other)])
+        with pytest.raises(ValueError, match='on a process mesh of cuda:1'):
+            pcol.ppermute(m, 'x', [on(other)], [(0, 1)])
 
 
 def test_a_rank_that_raises_fails_the_run():
