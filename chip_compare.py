@@ -11,8 +11,9 @@ Each version runs in a process of its own, in the order given and then in
 reverse (parent, this, this, parent for two), and builds its kernels from
 its own sources.  Each process prints one JSON line of f32 timings:
 ``lw_walk`` (K1) at the single world's [99, 1] and the headline's [59,
-4096]; the fused step at 2050 x 1026 with walls/walls (K6, the El Nino
-run's configuration) and in its interior mode (K5), K6 on 16 times the
+4096]; ``div_probe`` (K7) on the probe's inputs [256, 128]; the fused step
+at 2050 x 1026 with walls/walls (K6, the El Nino run's configuration) and
+in its interior mode (K5), K6 on 16 times the
 cells (8194 x 4098, CUDA events, a 16th of a call), and chip_smoke's
 ``level_scan`` call (``lw_flux_level_sharded`` on the single-controller
 mesh of ``SHARDS`` shards of the card).  Without
@@ -85,6 +86,7 @@ def worker(root: Path, kernels_only: bool):
         p_surface_earth
     from climatemodel_tpu_torch.models import shallow_water as psw
     from climatemodel_tpu_torch.models.grey import GreyGas
+    from climatemodel_tpu_torch.ops import cuda_convection as ccv
     from climatemodel_tpu_torch.ops import cuda_stencils as csl
     from climatemodel_tpu_torch.ops import cuda_two_stream as cts
     dev = torch.device('cuda', 0)
@@ -98,6 +100,8 @@ def worker(root: Path, kernels_only: bool):
     for n, b in ((99, 1), (59, 4096)):
         T, dtau, toa = cs.walk_inputs(gen, n, b, torch.float32, dev)
         res[f'lw_walk_{n}x{b}'] = times(lambda: cts.lw_walk(T, dtau, toa))
+    a, b = (torch.from_numpy(x).to(dev) for x in cs.probe_inputs())
+    res['div_probe'] = times(lambda: ccv.div_probe(a, b))
     x = cs.sw_inputs(torch.Generator().manual_seed(41), cs.SW['nx'],
                      cs.SW['ny'], torch.float32, dev, True, True)
     args = cs.sw_args(x)

@@ -636,42 +636,148 @@ def probe_inputs():
     return a, b
 
 
+# operands outside in_fast_range's [2^-20, 2^40], each sending its warp to
+# `/`: signed zeros, subnormals, the ends of the normal range, infinities,
+# NaN, and 2^-21 and 2^41 just outside the range
+DIV_PROBE_SPECIALS = (0.0, -0.0, 2.0 ** -149, -(2.0 ** -149), 1e-40, -1e-40,
+                      2.0 ** -126, -(2.0 ** -126), 2.0 ** 127, -(2.0 ** 127),
+                      3.4028235e38, float('inf'), float('-inf'), float('nan'),
+                      2.0 ** -21, 2.0 ** 41)
+
+
+def div_probe_cases():
+    """The two cases beside the probe's inputs, [256, 128] f32 each; a row
+    is one warp's chunk of the div_probe kernel (128 elements).
+    'in_range': every operand well inside [2^-20, 2^40] (|a| in 1e-3 ..
+    1e11, so C a too; |b| in 1e-5 .. 1e11), every warp on div_rn_in_range.
+    'ends': rows 0-127 hold DIV_PROBE_SPECIALS among ordinary operands (the
+    warps take `/`); rows 128-191 operands +-2^-20 and +-2^40 (quotients
+    2^-60 .. 2^60 on div_rn_in_range); rows 192-223 numerators +0 and
+    +-1.5 over +-2^-20 and +-2^40 (a +0 over a negative denominator sends
+    the warp to `/` for a / b, not for a / |b|); rows 224-255 the same
+    numerators over +2^-20 and +2^40 (+0 numerators on div_rn_in_range)."""
+    import numpy as np
+    rng = np.random.default_rng(12)
+    shape = (256, 128)
+
+    def signed(lo, hi):
+        return 10.0 ** rng.uniform(lo, hi, shape) * rng.choice([-1, 1], shape)
+    cases = {'in_range': (np.float32(signed(-3, 11)),
+                          np.float32(signed(-5, 11)))}
+    a, b = signed(-3, 3), signed(-3, 3)
+    for x in (a, b):
+        special = rng.random((128, 128)) < 0.25
+        x[:128][special] = rng.choice(DIV_PROBE_SPECIALS, int(special.sum()))
+    ends = (2.0 ** -20, -(2.0 ** -20), 2.0 ** 40, -(2.0 ** 40))
+    a[128:192] = rng.choice(ends, (64, 128))
+    b[128:192] = rng.choice(ends, (64, 128))
+    a[192:224] = rng.choice((0.0, 1.5, -1.5), (32, 128))
+    b[192:224] = rng.choice(ends, (32, 128))
+    a[224:] = rng.choice((0.0, 1.5, -1.5), (32, 128))
+    b[224:] = rng.choice(ends[::2], (32, 128))
+    cases['ends'] = (np.float32(a), np.float32(b))
+    return cases
+
+
+def div_probe_numpy(a, b, C):
+    """The probe's three quotients in numpy's f32 arithmetic."""
+    import numpy as np
+    with np.errstate(divide='ignore', invalid='ignore', over='ignore',
+                     under='ignore'):
+        return a / b, C * a / b, a / np.abs(b)
+
+
+def same_bits(x, y):
+    """f32 arrays bit for bit, NaN payloads aside (NaNs where the other has
+    them; every other entry, the sign of zero included, the same bits)."""
+    import numpy as np
+    nan_x, nan_y = np.isnan(x), np.isnan(y)
+    return bool(np.array_equal(nan_x, nan_y) and np.array_equal(
+        x[~nan_x].view(np.uint32), y[~nan_y].view(np.uint32)))
+
+
+def ptx_entry(ptx_text, name):
+    """The PTX of the kernel entry whose (mangled) name holds ``name``:
+    from its ``.entry`` line to the ``}`` that closes its body."""
+    lines = ptx_text.splitlines()
+    starts = [i for i, line in enumerate(lines)
+              if '.entry' in line and name in line]
+    check(len(starts) == 1, f'{len(starts)} PTX entries named {name}')
+    ends = [i for i in range(starts[0], len(lines))
+            if lines[i].rstrip() == '}']
+    check(bool(ends), f'the PTX entry of {name} has no end')
+    return '\n'.join(lines[starts[0]:ends[0] + 1])
+
+
+PTX_DIVISIONS = ('div.rn.f32', 'div.approx', 'div.full', 'div.rn.f64',
+                 'rcp.approx', 'rcp.approx.ftz.f32')
+
+
 def phase_div_probe(pc, mods, dev, ptx_text):
-    """K7: the f32 division compiled into convection.cu against PyTorch's
-    CUDA division (and numpy's) on the probe's inputs, per pattern; and
-    which division instructions the PTX holds (phase 2c).  The probe is
-    driven through ``convection.div_probe`` with the counts at 0."""
+    """K7: both forms of the f32 division compiled into convection.cu
+    (div_rn_in_range where a warp's vote allows it, `/` otherwise) against
+    PyTorch's CUDA division and numpy's, per pattern, on the probe's inputs
+    (driven through ``convection.div_probe`` with the counts at 0) and on
+    div_probe_cases; the warps that took each form
+    (``convection.div_probe_warp_paths``); and the division instructions in
+    the PTX of the whole file and of ``div_probe_kernel`` (phase 2c)."""
     import numpy as np
     import torch
     a_np, b_np = probe_inputs()
     a, b = torch.from_numpy(a_np).to(dev), torch.from_numpy(b_np).to(dev)
     reset_counts(mods)
-    outs_k = pc.div_probe(a, b)
+    outs_probe = pc.div_probe(a, b)
     torch.cuda.synchronize()
     launches = read_counts(mods)['div_probe']
-    outs_p = pc.div_probe_plain(a, b)
     C = np.float32(pc.DIV_PROBE_C)
-    outs_np = (a_np / b_np, C * a_np / b_np, a_np / np.abs(b_np))
+    names = ('a_div_b', 'c_mul_a_div_b', 'a_div_abs_b')
     res, err = {}, 0.0
-    for name, k, p, x in zip(('a_div_b', 'c_mul_a_div_b', 'a_div_abs_b'),
-                             outs_k, outs_p, outs_np):
-        k, p = k.cpu().numpy(), p.cpu().numpy()
-        rel = np.abs(k - p) / np.maximum(np.abs(p), 1e-30)
-        res[name] = {'bit_equal': bool(np.array_equal(k, p)),
-                     'max_rel': float(np.nanmax(rel)),
-                     'frac_differ': float(np.mean(k != p)),
-                     'bit_equal_numpy': bool(np.array_equal(k, x))}
-        err = max(err, float(np.abs(k.astype(np.float64) - p).max()))
-    ptx_div = {pat: ptx_text.count(pat) for pat in
-               ('div.rn.f32', 'div.approx', 'div.full', 'div.rn.f64',
-                'rcp.approx')}
-    emit('div_probe', launches=launches, ptx_division=ptx_div, **res)
+    for case, (x_np, y_np) in {'probe': (a_np, b_np),
+                               **div_probe_cases()}.items():
+        x, y = torch.from_numpy(x_np).to(dev), torch.from_numpy(y_np).to(dev)
+        outs_k = outs_probe if case == 'probe' else pc.div_probe(x, y)
+        outs_p = pc.div_probe_plain(x, y)
+        paths = pc.div_probe_warp_paths(x, y)
+        res[case] = {}
+        for name, k, p, n in zip(names, outs_k, outs_p,
+                                 div_probe_numpy(x_np, y_np, C)):
+            k, p = k.cpu().numpy(), p.cpu().numpy()
+            finite = np.isfinite(k) & np.isfinite(p) & (p != 0)
+            rel = np.abs(k[finite] - p[finite]) / np.abs(p[finite])
+            res[case][name] = {
+                'bit_equal': same_bits(k, p),
+                'bit_equal_numpy': same_bits(k, n),
+                'max_rel': float(rel.max()) if rel.size else 0.0,
+                'frac_differ': float(np.mean(k.view(np.uint32)
+                                             != p.view(np.uint32))),
+                'warps': paths[name]}
+            if case == 'probe':
+                err = max(err, float(np.abs(k.astype(np.float64) - p).max()))
+    entry = ptx_entry(ptx_text, 'div_probe_kernel')
+    ptx_file = {pat: ptx_text.count(pat) for pat in PTX_DIVISIONS}
+    ptx_kernel = {pat: entry.count(pat) for pat in PTX_DIVISIONS}
+    emit('div_probe', launches=launches, ptx_division=ptx_file,
+         ptx_div_probe_kernel=ptx_kernel, **res)
     check(launches == 1, f'div_probe launched {launches} times, not once')
-    check(all(r['bit_equal'] for r in res.values()),
-          'div_probe differs from PyTorch\'s CUDA division')
-    check(ptx_div['div.rn.f32'] > 0 and ptx_div['div.approx'] == 0
-          and ptx_div['div.full'] == 0,
-          f'convection.cu PTX divides approximately: {ptx_div}')
+    for case, pats in res.items():
+        for name, r in pats.items():
+            check(r['bit_equal'] and r['bit_equal_numpy'],
+                  f'div_probe {case} {name} differs from PyTorch\'s CUDA '
+                  f'division or numpy\'s')
+    probe_warps = res['probe'].values()
+    check(any(r['warps']['fast'] for r in probe_warps)
+          and any(r['warps']['div_rn'] for r in probe_warps),
+          'the probe\'s inputs did not put a warp on each division form')
+    check(all(r['warps']['div_rn'] == 0 for r in res['in_range'].values()),
+          'a warp of the in_range case took `/`')
+    check(ptx_file['div.rn.f32'] > 0 and ptx_file['div.approx'] == 0
+          and ptx_file['div.full'] == 0,
+          f'convection.cu PTX divides approximately: {ptx_file}')
+    check(ptx_kernel['rcp.approx.ftz.f32'] > 0
+          and ptx_kernel['div.rn.f32'] > 0 and ptx_kernel['div.approx'] == 0
+          and ptx_kernel['div.full'] == 0,
+          f'div_probe_kernel\'s PTX lacks a form or divides approximately: '
+          f'{ptx_kernel}')
     return dict(err=err, launches=launches, a=a, b=b)
 
 
@@ -3817,8 +3923,12 @@ def main():
         entry('div_probe', 'convection.cu',
               'tools/probe_mosaic_div.py:28 (_kernel of via_pallas, K7)',
               probe['launches'], probe['err'], times['div_probe'],
+              # device time beside a device time; the call's CUDA-event
+              # time where the profiler dropped the library's launches
               library_ms=(times['div_probe']['library_device_ms']
                           if times['div_probe']['device_ms'] is not None
+                          and times['div_probe']['library_device_ms']
+                          is not None
                           else times['div_probe']['library_ms'])),
         entry('richtmyer_step', 'stencils.cu',
               'climatemodel_tpu/ops/pallas_stencils.py:158 (_kernel_body, '

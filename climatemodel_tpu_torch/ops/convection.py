@@ -360,6 +360,51 @@ def div_probe_plain(a, b):
     return a / b, C * a / b, a / torch.abs(b)
 
 
+#: elements of one warp's chunk in the ``div_probe`` kernel: 32 lanes x 4
+DIV_PROBE_WARP_ELEMENTS = 128
+#: ``in_fast_range`` (ops/csrc/div_rn.cuh): |x| in [2^-20, 2^40]
+FAST_RANGE = (2.0 ** -20, 2.0 ** 40)
+
+
+def _fast_operands(num, den):
+    """Where the kernel may divide ``num / den`` with ``div_rn_in_range``:
+    the denominator in range, and the numerator in range or +0 over a
+    positive denominator."""
+    lo, hi = FAST_RANGE
+
+    def in_range(x):
+        return (x.abs() >= lo) & (x.abs() <= hi)
+    pos_zero = (num == 0) & ~torch.signbit(num)
+    return in_range(den) & (in_range(num) | (pos_zero & (den > 0)))
+
+
+def div_probe_warp_paths(a, b):
+    """How many warps of the ``div_probe`` kernel (K7) divide each quotient
+    with ``div_rn_in_range`` ('fast') and how many with ``/`` ('div_rn'),
+    for f32 inputs ``a``, ``b`` of one shape.  A warp holds 128 consecutive
+    elements of the flattened inputs (the last chunk padded with 1 / 1) and
+    takes the fast form only where every one of its operands allows it; the
+    numerator of (C * a) / b is the rounded product C * a.
+
+    :return: ``{'a_div_b': {'fast': n, 'div_rn': m}, 'c_mul_a_div_b':
+        {...}, 'a_div_abs_b': {...}}``.
+    """
+    a, b = a.reshape(-1), b.reshape(-1)
+    C = torch.tensor(DIV_PROBE_C, dtype=torch.float32, device=a.device)
+    oks = {'a_div_b': _fast_operands(a, b),
+           'c_mul_a_div_b': _fast_operands(C * a, b),
+           'a_div_abs_b': _fast_operands(a, torch.abs(b))}
+    chunks = -(-a.numel() // DIV_PROBE_WARP_ELEMENTS)
+    pad = chunks * DIV_PROBE_WARP_ELEMENTS - a.numel()
+    res = {}
+    for name, ok in oks.items():
+        ok = torch.cat([ok, ok.new_ones(pad)]).reshape(chunks,
+                                                     DIV_PROBE_WARP_ELEMENTS)
+        fast = int(ok.all(dim=1).sum())
+        res[name] = {'fast': fast, 'div_rn': chunks - fast}
+    return res
+
+
 def div_probe(a, b):
     """The division probe (K7) on f32 tensors of one shape: the plain
     version for CPU tensors, the ``div_probe`` kernel for CUDA tensors."""

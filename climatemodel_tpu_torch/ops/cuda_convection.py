@@ -6,7 +6,10 @@
   isotonic fit of [C, n] rows, the prefix sums that the Pallas wrapper
   forms outside ``pallas_call`` included (by the CPU's rule, see
   ``convection.iso_prefix_sums``).
-* :func:`div_probe` replaces ``via_pallas`` (tools/probe_mosaic_div.py, K7).
+* :func:`div_probe` replaces ``via_pallas`` (tools/probe_mosaic_div.py, K7),
+  dividing as the port's kernels do: ``div_rn_in_range`` where a warp's
+  vote allows it, ``/`` otherwise (``convection.div_probe_warp_paths``
+  counts the warps of each form).
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on the current stream, raises if the
@@ -100,7 +103,10 @@ def iso_fit(theta, v):
 
 
 def div_probe(a, b):
-    """K7: (a / b, (C * a) / b, a / |b|) of two f32 tensors of one shape."""
+    """K7: (a / b, (C * a) / b, a / |b|) of two f32 tensors of one shape,
+    bit-equal to ``convection.div_probe_plain``; 16-byte accesses where
+    every pointer is 16-byte aligned (fresh outputs and contiguous inputs
+    are), scalar ones otherwise."""
     _refuse_grad('div_probe', 'convection.div_probe_plain', a, b)
     if a.dtype != torch.float32:
         raise ValueError(f'div_probe: needs float32, got {a.dtype}')
