@@ -28,6 +28,7 @@ import torch
 from ..constants import g, c_p_dry, sigma, SECONDS_PER_DAY, SECONDS_PER_YEAR
 from ..ops.convection import convective_adjustment
 from ..ops.two_stream import percentile_topk_params
+from ..utils import timing
 
 # The march loop asks the device whether any member is still running once
 # every this many lock-step iterations (one host sync each).  Stopped members
@@ -673,6 +674,7 @@ def evolve_to_equilibrium(state: ColumnState, net_flux_fn: Callable,
     return st, info
 
 
+@timing.spanned('march', top=True)
 def evolve_to_equilibrium_sharded(states, net_flux_fns, p_interfaces,
                                   p_centre_cols=None, *, net_stats_fns=None,
                                   flux_thresh=1e-3,
@@ -697,7 +699,10 @@ def evolve_to_equilibrium_sharded(states, net_flux_fns, p_interfaces,
 
     Every iteration steps each shard that has not stopped (queued on its
     own device, so the cards run while the host dispatches), and the host
-    reads every shard's stop flags once every SYNC_EVERY iterations.  A
+    reads every shard's stop flags once every SYNC_EVERY iterations.  The
+    call is the span ``march`` (``utils/timing.py``), each shard's step the
+    span ``march.step``, each read of the stop flags ``march.stop_check``;
+    the counter ``march.iterations`` counts the iterations that step.  A
     member's march is the unsharded one step for step: members are
     independent, and a stopped member is frozen.  The keywords are
     :func:`evolve_to_equilibrium`'s.
@@ -750,14 +755,19 @@ def evolve_to_equilibrium_sharded(states, net_flux_fns, p_interfaces,
         stops = {k: marches[k].stopped() for k in running}
         if it % per_sync == 0:
             done = {k: s.all() for k, s in stops.items()}  # queued first
-            running = [k for k in running if not bool(done[k])]
+            with timing.span('march.stop_check'):
+                running = [k for k in running if not bool(done[k])]
+            if not running:
+                break
         it += 1
+        timing.count('march.iterations')
         for k in running:
             iterations[k] += 1
-            if chunked:
-                marches[k].chunk(int(check_every), stops[k])
-            else:
-                marches[k].step(stops[k])
+            with timing.span('march.step'):
+                if chunked:
+                    marches[k].chunk(int(check_every), stops[k])
+                else:
+                    marches[k].step(stops[k])
     sizes = [m.i.numel() for m in marches]
     if member_offsets is None:
         member_offsets = [sum(sizes[:k]) for k in range(n)]

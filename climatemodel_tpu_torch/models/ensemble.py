@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..constants import sigma
+from ..utils import timing
 from . import column
 from .column import ColumnState, where_members
 from .grey import (GreyForcing, GreyGas, grey_net_flux_fn, grey_sw_fluxes,
@@ -124,6 +125,7 @@ def grey_evolve_ensemble_robust(states: ColumnState, forcings: GreyForcing,
         **march_kw)
 
 
+@timing.spanned('finish', top=True)
 def grey_finish_unconverged_f64(fs: ColumnState, info, forcings: GreyForcing,
                                 p_interface, p_centre_col, flux_thresh,
                                 finish_repeats: int = 8,
@@ -139,18 +141,22 @@ def grey_finish_unconverged_f64(fs: ColumnState, info, forcings: GreyForcing,
     Each of up to ``finish_repeats`` fresh calls (t=0 restart, base.py:
     301-306) runs at most ``finish_max_steps`` steps on the ensemble's
     device; a member that converges in one repeat is frozen for the rest.
+    The counters ``finish.repeats`` and ``finish.members`` count the
+    repeats and the candidates re-marched.
 
     :return: (states, info, finished member indices)
     """
-    eqb = info.equilibrium.cpu().numpy()
-    failed = info.failed.cpu().numpy()
-    nan = info.nan.cpu().numpy()
+    with timing.span('finish.sync'):
+        eqb = info.equilibrium.cpu().numpy()
+        failed = info.failed.cpu().numpy()
+        nan = info.nan.cpu().numpy()
     # only timed-out members are finishing candidates: failed/nan are real
     # aborts the caller must see
     cand = ~eqb & ~failed & ~nan
     if not cand.any() or fs.T.dtype == torch.float64:
         return fs, info, np.zeros((0,), np.int64)
     bad_np = np.where(cand)[0]
+    timing.count('finish.members', len(bad_np))
     bad = torch.as_tensor(bad_np, device=fs.T.device)
     f64 = torch.float64
 
@@ -169,6 +175,7 @@ def grey_finish_unconverged_f64(fs: ColumnState, info, forcings: GreyForcing,
     done = torch.zeros(len(bad_np), dtype=torch.bool, device=fs.T.device)
     fin64 = info64 = None
     for _ in range(int(finish_repeats)):
+        timing.count('finish.repeats')
         # fresh-call restart (base.py:301-306): t=0, forced first step
         st64 = st64.replace(t=torch.zeros_like(st64.t))
         st64, step_info = grey_evolve_ensemble(st64, fo64, p_i64, p_c64,
@@ -180,7 +187,9 @@ def grey_finish_unconverged_f64(fs: ColumnState, info, forcings: GreyForcing,
         info64 = step_info if info64 is None else column.EquilibriumInfo(
             *(where_members(done, a, b) for a, b in zip(info64, step_info)))
         done = done | step_info.equilibrium
-        if bool(done.all()):
+        with timing.span('finish.sync'):
+            settled = bool(done.all())
+        if settled:
             break
 
     def scatter(full, part):

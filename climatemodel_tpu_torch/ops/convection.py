@@ -42,6 +42,7 @@ from __future__ import annotations
 import torch
 
 from ..constants import g, c_p_dry, p_surface_earth, R_specific
+from ..utils import timing
 
 _SMALL = 1e-10   # instability tolerance (convective_adjustment.py:62)
 
@@ -150,12 +151,15 @@ def _group_step(T, ignored, gid, gi, pi, w, thresh, idx, live):
     return T, ignored
 
 
+@timing.spanned('blend')
 def reference_adjust_rows(T, pi, w, thresh, max_groups=None, max_outer=None):
     """Faithful group-blend adjustment of [C, n] columns (p descending) on a
     shared grid (pi, w [n]) with per-column thresholds ``thresh`` [C].
 
     Lock-step over the columns: one host sync per outer sweep reads the
-    largest group count of the active columns (0 ends the loop)."""
+    largest group count of the active columns (0 ends the loop); the
+    counter ``blend.sweeps`` counts them, the span ``blend.sync`` times
+    them."""
     C, n = T.shape
     if max_groups is None:
         max_groups = n // 2 + 1
@@ -172,7 +176,9 @@ def reference_adjust_rows(T, pi, w, thresh, max_groups=None, max_outer=None):
         starts = un & ~torch.cat([torch.zeros_like(un[:, :1]), un[:, :-1]], 1)
         gid = torch.where(un, torch.cumsum(starts, dim=1), 0)   # frozen per sweep
         n_groups = torch.clamp(gid.amax(dim=1), max=max_groups)
-        n_run = int(torch.where(active, n_groups, 0).amax())
+        timing.count('blend.sweeps')
+        with timing.span('blend.sync'):
+            n_run = int(torch.where(active, n_groups, 0).amax())
         if n_run == 0:
             break
         T_prev = T

@@ -7,6 +7,7 @@ every comparison here is exact.  A march resumed from a checkpoint ends
 bit-equal to the march that was never interrupted.
 """
 import dataclasses
+import json
 import os
 import warnings
 
@@ -209,7 +210,18 @@ def test_timing_helpers(tmp_path):
     with warnings.catch_warnings():
         warnings.simplefilter('ignore')
         with ptm.device_trace(tmp_path / 'trace') as prof:
-            torch.ones(8).sum()
+            with ptm.span('probe'):
+                torch.ones(8).sum()
     assert prof is not None
-    files = os.listdir(tmp_path / 'trace')
-    assert len(files) == 1 and files[0].endswith('.json')
+    files = sorted(os.listdir(tmp_path / 'trace'))
+    assert len(files) == 2
+    assert files[0].endswith('.pt.trace.json')
+    assert files[1] == files[0].replace('.pt.trace.json', '.spans.json')
+    trace, spans = (json.loads((tmp_path / 'trace' / f).read_text())
+                    for f in files)
+    assert spans['baseTimeNanoseconds'] == trace['baseTimeNanoseconds']
+    [probe] = [e for e in spans['traceEvents'] if e['name'] == 'probe']
+    ops = [e for e in trace['traceEvents'] if e.get('name') == 'aten::sum']
+    # one clock and one time base: the span holds the op it timed
+    assert ops and all(probe['ts'] <= op['ts'] <= op['ts'] + op['dur'] <=
+                       probe['ts'] + probe['dur'] for op in ops)
