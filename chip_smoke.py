@@ -2,7 +2,9 @@
 """Smoke run of the PyTorch port (``climatemodel_tpu_torch``) on one NVIDIA
 GPU: builds the CUDA kernels from ``climatemodel_tpu_torch/ops/csrc/`` (one
 ``nvcc`` per source, all at once), holds each against its plain PyTorch
-version on the card, probes the f32 division the kernels compile to, drives
+version on the card (the group blend, K8, bit-equal to its twin and timed
+beside the lock-step loop), probes the f32 division the kernels compile to,
+drives
 the grey radiative-equilibrium ensemble march at the headline size and the
 radiative-convective marches (the 512-member convective ensemble and the
 single thermosphere world, both adjustment methods), the ice-albedo EBM
@@ -31,7 +33,7 @@ the wind-free world bit-equal to the unsharded run), the 2-D
 decomposition and the level-sharded flux scan; then the member- and
 band-sharded compositions (``parallel/ensemble.py``): the grey headline and
 the convective ensemble with their members on the shards (K3, and K4 on
-isotonic, on every shard), the real-gas net flux with its bands on the
+isotonic or K8 on reference, on every shard), the real-gas net flux with its bands on the
 shards, the real-gas ensemble with its members on them and on a (2, 2)
 mesh with the bands on its other axis, and bench_sw's El Nino world as an
 ensemble of 4 members on a (2, 2) mesh.  The ranks phase runs the
@@ -64,6 +66,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
 
@@ -625,6 +628,86 @@ def phase_conv_kernels(ccv, pc, dev):
     return at_main
 
 
+#: the group blend's (K8) cases: (columns, nz) of the thermosphere world
+#: (nz 'auto' is the CLI's 598-level world), and its timed shapes
+BLEND_CASES = [(4096, 150), (1, 'auto')]
+BLEND_TIMED = [(32768, 150), (1, 'auto')]
+
+
+def blend_inputs(GreyGas, p_surface_earth, pc, C, nz, dtype, seed):
+    """C seeded thermosphere columns for the group blend, on the CPU: the
+    radiative-convective profile (a quarter the radiative one) warmed by
+    0-3% plus 0-0.02 K of noise (a march step); thresholds median / 4, 0.05
+    K on every fifth column from the fifth (groups skipped).  (T [C, n], pi,
+    w [n], thresh [C])."""
+    import numpy as np
+    import torch
+    world = GreyGas(nz=nz, ny=1, device='cpu', dtype=torch.float64,
+                    **thermosphere_kwargs(p_surface_earth))
+    with warnings.catch_warnings():
+        warnings.simplefilter('ignore')      # the tau_sw = 0 closed form
+        rce = world.equilibrium_sol(convective_adjust=True)[2][:, 0]
+        rad = world.equilibrium_sol()[2][:, 0]
+    rng = np.random.default_rng(seed)
+    base = np.where(rng.random((C, 1)) < 0.25, rad, rce) * (
+        1 + 0.03 * rng.random((C, 1)))
+    T = torch.tensor(base + 0.02 * rng.random((C, 1))
+                     * rng.standard_normal((C, len(rce))), dtype=dtype)
+    pi, w = pc.grid_factors(torch.tensor(world.p[:, 0], dtype=dtype))
+    thresh = pc.median_last(T) / 4
+    thresh[4::5] = 0.05
+    return T, pi, w, thresh
+
+
+def phase_group_blend(GreyGas, p_surface_earth, ccv, pc, dev):
+    """The group blend (K8) against its plain twin (phase 2c):
+    ``group_blend_plain`` on CPU copies, bit for bit, one launch a call,
+    f32 and f64 at BLEND_CASES; then timed at BLEND_TIMED in f32 beside the
+    lock-step loop the card ran before (``torch.sum``'s order): CUDA events
+    (50 kernel calls, 3 of the loop) and the profiler's device time.  The
+    bound: T read and written, pi, w and thresh read, over the card's
+    memory rate."""
+    import torch
+    res = {}
+    for dtype in (torch.float32, torch.float64):
+        for C, nz in BLEND_CASES:
+            T, pi, w, thresh = blend_inputs(GreyGas, p_surface_earth, pc, C,
+                                            nz, dtype, 7)
+            mg, mo = pc._blend_limits(T.shape[1], None, None)
+            before = ccv.launch_counts['group_blend']
+            got = ccv.group_blend(*(x.to(dev) for x in (T, pi, w, thresh)),
+                                  mg, mo).cpu()
+            launches = ccv.launch_counts['group_blend'] - before
+            want = pc.group_blend_plain(T, pi, w, thresh)
+            same = torch.equal(got, want)
+            emit('kernel_vs_plain', kernel='group_blend', dtype=str(dtype),
+                 b=C, n=T.shape[1], bit_equal=same, launches=launches,
+                 adjusted=int(((want - T).abs() > 0).any(dim=1).sum()))
+            check(same and launches == 1, f'group_blend {C}x{T.shape[1]} '
+                  f'{dtype}: bit_equal {same}, {launches} launches')
+    for C, nz in BLEND_TIMED:
+        T, pi, w, thresh = (x.to(dev) for x in blend_inputs(
+            GreyGas, p_surface_earth, pc, C, nz, torch.float32, 8))
+        n = T.shape[1]
+        mg, mo = pc._blend_limits(n, None, None)
+
+        def kern():
+            return ccv.group_blend(T, pi, w, thresh, mg, mo)
+
+        def plain():
+            return pc._lockstep_blend(T, pi, w, thresh, mg, mo,
+                                      pc._torch_row_sums)
+        k1, p1, k2 = time_ms(kern), time_ms(plain, reps=3), time_ms(kern)
+        k_dev = device_ms(kern)
+        res[f'group_blend_{C}x{n}'] = dict(
+            b=C, n=n, ms=k_dev if k_dev is not None else min(k1, k2),
+            call_ms=min(k1, k2), plain_ms=p1, device_ms=k_dev,
+            plain_device_ms=device_ms(plain, 2),
+            bound=bound(4 * (2 * C * n + 2 * n + C), 0))
+    emit('group_blend_times', **res)
+    return res
+
+
 def probe_inputs():
     """The division probe's own inputs (tools/probe_mosaic_div.py:50-56)."""
     import numpy as np
@@ -876,11 +959,11 @@ def phase_conv_main(ens, GreyGas, p_surface_earth, mods, dev):
               f'{method}: nan or failed members after the f64 pass')
         check(bool(torch.isfinite(fs_r.T).all()), 'non-finite temperatures')
         if method == 'isotonic':
-            check(launches['iso_fit'] > 0, 'K4 never launched on the '
-                  'isotonic path')
+            check(launches['iso_fit'] > 0 and launches['group_blend'] == 0,
+                  'K4 never launched on the isotonic path, or K8 did')
         else:
-            check(launches['iso_fit'] == 0, 'K4 launched on the reference '
-                  'path')
+            check(launches['iso_fit'] == 0 and launches['group_blend'] > 0,
+                  'K4 launched on the reference path, or K8 never did')
         check(launches['net_stats_walk'] > 0, 'K3 never launched on the '
               'convective path')
         check(bool((d > -tol[active[:-1]]).all()),
@@ -2220,6 +2303,9 @@ def phase_grad(psw, cts, ccv, csl, dev):
                     (z(2, 4) + 300, z(4) + 1)),
         'div_probe': (ccv.div_probe, ccv.launch_counts, 'div_probe',
                       (z(4) + 1, z(4) + 3)),
+        'group_blend': (ccv.group_blend, ccv.launch_counts, 'group_blend',
+                        (z(2, 4) + 300, z(4) + 1, z(4) + 1, z(2) + 1e9, 3,
+                         16)),
         'richtmyer_step': (csl.richtmyer_step, csl.launch_counts,
                            'richtmyer_step_interior',
                            (z(5, 5) + 100, z(5, 5), z(5, 5), z(3, 3),
@@ -3041,10 +3127,9 @@ def phase_dp_conv(ens, pens, pmesh, GreyGas, p_surface_earth, mods, ccv, pc,
     """bench_rce_conv_ensemble (512 members, nz 150, F 1200-1500 W/m^2,
     flux_thresh 0.1) with the members on 'data' = SHARDS, each adjustment
     method (phase 3k): the unsharded march, then the sharded one.  K3
-    launches once per shard and iteration, K4 too on isotonic and never on
-    reference.  isotonic is held bit-equal (or the dp bound), reference to
-    the dp bound (its enthalpy sums ``(w * T).sum(dim=1)`` round by the
-    number of rows).  Then K4 timed at a shard's 128 x 149 against its
+    launches once per shard and iteration, K4 too on isotonic, K8 on
+    reference.  Both are held bit-equal (or the dp bound): K8 blends each
+    column alone.  Then K4 timed at a shard's 128 x 149 against its
     plain version, and held to it on CPU copies."""
     import numpy as np
     import torch
@@ -3055,7 +3140,7 @@ def phase_dp_conv(ens, pens, pmesh, GreyGas, p_surface_earth, mods, ccv, pc,
     F = np.linspace(*CONV['F'], CONV['members'])
     states, forcings, p_int, p_c = ens.grey_ensemble(world, F)
     ft = CONV['flux_thresh']
-    out, launches = {}, {'net_stats_walk': 0, 'iso_fit': 0}
+    out, launches = {}, {'net_stats_walk': 0, 'iso_fit': 0, 'group_blend': 0}
     for method in METHODS:
         kw = dict(convective_adjust=True, conv_method=method,
                   max_steps=CONV['max_steps'])
@@ -3067,6 +3152,7 @@ def phase_dp_conv(ens, pens, pmesh, GreyGas, p_surface_earth, mods, ccv, pc,
             mesh, states, forcings, p_int, p_c, ft, telemetry=tel, **kw))
         k3_dev = device_counts(mods, 'net_stats_walk')
         k4_dev = device_counts(mods, 'iso_fit')
+        k8_dev = device_counts(mods, 'group_blend')
         want_dev = per_device(devices, tel['iterations'])
         for k in launches:
             launches[k] += read_counts(mods)[k]
@@ -3081,6 +3167,7 @@ def phase_dp_conv(ens, pens, pmesh, GreyGas, p_surface_earth, mods, ccv, pc,
                  unsharded_iterations=int(ref_info.steps.max()),
                  launches_k3_per_device=k3_dev,
                  launches_k4_per_device=k4_dev,
+                 launches_k8_per_device=k8_dev,
                  iterations_per_device=want_dev,
                  converged_fraction_f32=float(
                      info.equilibrium.double().mean()),
@@ -3091,6 +3178,9 @@ def phase_dp_conv(ens, pens, pmesh, GreyGas, p_surface_earth, mods, ccv, pc,
               f'{k3_dev} != the shards\' iterations {want_dev}')
         check(k4_dev == (want_dev if method == 'isotonic' else {}),
               f'{method}: K4 launches per device {k4_dev}, iterations '
+              f'{want_dev}')
+        check(k8_dev == (want_dev if method == 'reference' else {}),
+              f'{method}: K8 launches per device {k8_dev}, iterations '
               f'{want_dev}')
         check(dp_ok(cmp), f'{method} dp vs unsharded: {cmp}')
         check(int(info.nan.sum()) == 0 and int(info.failed.sum()) == 0,
@@ -3815,6 +3905,7 @@ def main():
 
     at_main = phase_kernels(cts, ts, dev)
     at_main.update(phase_conv_kernels(ccv, pc, dev))
+    blend_times = phase_group_blend(GreyGas, p_surface_earth, ccv, pc, dev)
     at_main.update(phase_sw_kernels(csl, pst, dev))
     phase_sw_max2_reset(psw, Omega, R_earth, csl, pst, dev)
     probe = phase_div_probe(pc, mods, dev, ptx_text)
@@ -3920,6 +4011,14 @@ def main():
               conv_res['isotonic']['launches']['iso_fit'] + rg_iso_launches
               + cli_launches['iso_fit'] + dp_conv['launches']['iso_fit'],
               at_main['iso_fit'], times[iso_main]),
+        entry('group_blend', 'convection.cu',
+              'none (K8; the JAX package retired its blend kernel in r05, '
+              'climatemodel_tpu/ops/convection.py:211-217)',
+              conv_res['reference']['launches']['group_blend']
+              + cli_launches['group_blend']
+              + dp_conv['launches']['group_blend'], 0.0,
+              blend_times[f'group_blend_{BLEND_TIMED[0][0]}x'
+                          f'{BLEND_TIMED[0][1] - 1}']),
         entry('div_probe', 'convection.cu',
               'tools/probe_mosaic_div.py:28 (_kernel of via_pallas, K7)',
               probe['launches'], probe['err'], times['div_probe'],

@@ -12,16 +12,21 @@ Columns are rows of a [C, n] tensor (p descending, surface first); the JAX
 package's ``vmap`` over columns is that leading axis here.
 
 ``method='reference'`` (default) — the faithful group-blend iteration.  The
-    JAX package runs it as nested ``lax.while_loop``s under ``vmap``; here one
-    lock-step loop runs over the batch: outer sweeps continue while any
-    column is active (unstable, progressing, under ``max_outer``), the group
-    loop runs to the largest group count of the active columns, and a column
+    JAX package runs it as nested ``lax.while_loop``s under ``vmap``, so
+    each column's result depends on that column alone.  CPU tensors take one
+    lock-step loop over the batch: outer sweeps continue while any column
+    is active (unstable, progressing, under ``max_outer``), the group loop
+    runs to the largest group count of the active columns, and a column
     with fewer groups sees an empty group and is left unchanged — exactly
     what the vmapped loops' selects do.  Columns with no unstable level are
-    untouched (the JAX package's stability gate).  This executor is plain
-    PyTorch on every device: the JAX package has no kernel for it either
-    (its Pallas version was retired in r05 after miscompiling on the chip,
-    ``climatemodel_tpu/ops/convection.py:211-217``).
+    untouched (the JAX package's stability gate).  CUDA tensors take the
+    ``group_blend`` kernel (ops/csrc/convection.cu, K8): a warp per column,
+    each column looping on its own, one launch and no host sync a call.
+    It replaces no Pallas kernel (the JAX package's was retired in r05
+    after miscompiling on the chip, ``climatemodel_tpu/ops/convection.py:
+    211-217``); its plain twin :func:`group_blend_plain` is the lock-step
+    loop with the kernel's order of the enthalpy sums
+    (:func:`warp_row_sums`).
 
 ``method='isotonic'`` — the closed form: the stable enthalpy-conserving
     profile of maximal mixing is the weighted isotonic regression of
@@ -108,9 +113,10 @@ def _unstable_mask(T, pi, ignored):
     return (d_ext < -_instability_tol(theta)) & ~ignored
 
 
-def _group_step(T, ignored, gid, gi, pi, w, thresh, idx, live):
+def _group_step(T, ignored, gid, gi, pi, w, thresh, idx, live, row_sums):
     """One group of one sweep for every column (convective_adjustment.py:
-    64-110); ``live`` [C] marks the columns whose loops are still running."""
+    64-110); ``live`` [C] marks the columns whose loops are still running;
+    ``row_sums`` sums the enthalpy products of each row."""
     n = T.shape[1]
     in_g = gid == gi
     any_g = in_g.any(dim=1)
@@ -137,9 +143,9 @@ def _group_step(T, ignored, gid, gi, pi, w, thresh, idx, live):
     T_upper = torch.where((idx >= hi_anchor[:, None]) & (idx <= stop[:, None]),
                           theta_hi * pi, T)
     # enthalpy-conserving blend (convective_adjustment.py:102-105)
-    H = (w * T).sum(dim=1)
-    H_lo = (w * T_lower).sum(dim=1)
-    H_hi = (w * T_upper).sum(dim=1)
+    H = row_sums(w * T)
+    H_lo = row_sums(w * T_lower)
+    H_hi = row_sums(w * T_upper)
     denom = H_hi - H_lo
     zero = denom == 0
     beta = torch.where(zero, 0.5, (H - H_lo) / torch.where(zero, 1.0, denom))
@@ -151,20 +157,42 @@ def _group_step(T, ignored, gid, gi, pi, w, thresh, idx, live):
     return T, ignored
 
 
-@timing.spanned('blend')
-def reference_adjust_rows(T, pi, w, thresh, max_groups=None, max_outer=None):
-    """Faithful group-blend adjustment of [C, n] columns (p descending) on a
-    shared grid (pi, w [n]) with per-column thresholds ``thresh`` [C].
+def _torch_row_sums(x):
+    return x.sum(dim=1)
 
-    Lock-step over the columns: one host sync per outer sweep reads the
-    largest group count of the active columns (0 ends the loop); the
-    counter ``blend.sweeps`` counts them, the span ``blend.sync`` times
-    them."""
+
+#: lanes of a warp, over which the ``group_blend`` kernel strides a
+#: column's levels
+WARP = 32
+
+
+def warp_row_sums(x):
+    """Row sums of [C, n] in the ``group_blend`` kernel's order: lane l of
+    a warp adds levels l, l + 32, l + 64, ... in turn to a zero (0 past the
+    row's end), then the 32 partial sums meet in a butterfly (partner lane
+    l ^ 16, then ^ 8, ^ 4, ^ 2, ^ 1).  Each butterfly step adds two values
+    that every pair of partners adds alike, so every lane ends with the
+    same sum."""
+    C, n = x.shape
+    k = -(-n // WARP)
+    lanes = torch.zeros((C, k * WARP), dtype=x.dtype, device=x.device)
+    lanes[:, :n] = x
+    lanes = lanes.reshape(C, k, WARP)
+    acc = torch.zeros((C, WARP), dtype=x.dtype, device=x.device)
+    for j in range(k):
+        acc = acc + lanes[:, j]
+    lane = torch.arange(WARP, device=x.device)
+    for off in (16, 8, 4, 2, 1):
+        acc = acc + acc[:, lane ^ off]
+    return acc[:, 0]
+
+
+def _lockstep_blend(T, pi, w, thresh, max_groups, max_outer, row_sums):
+    """The group blend of [C, n] columns as one lock-step loop over the
+    batch: one host sync per outer sweep reads the largest group count of
+    the active columns (0 ends the loop); the counter ``blend.sweeps``
+    counts them, the span ``blend.sync`` times them."""
     C, n = T.shape
-    if max_groups is None:
-        max_groups = n // 2 + 1
-    if max_outer is None:
-        max_outer = 4 * n
     idx = torch.arange(n, device=T.device)
     thresh = thresh.to(T.dtype)
     ignored = torch.zeros_like(T, dtype=torch.bool)
@@ -184,7 +212,7 @@ def reference_adjust_rows(T, pi, w, thresh, max_groups=None, max_outer=None):
         T_prev = T
         for gi in range(1, n_run + 1):
             T, ignored = _group_step(T, ignored, gid, gi, pi, w, thresh, idx,
-                                     active & (gi <= n_groups))
+                                     active & (gi <= n_groups), row_sums)
         un_new = _unstable_mask(T, pi, ignored)
         progressed = torch.where(
             active, (T != T_prev).any(dim=1) | (un_new != un).any(dim=1),
@@ -192,6 +220,40 @@ def reference_adjust_rows(T, pi, w, thresh, max_groups=None, max_outer=None):
         un = un_new
         sweep += 1
     return T
+
+
+def _blend_limits(n, max_groups, max_outer):
+    return (n // 2 + 1 if max_groups is None else max_groups,
+            4 * n if max_outer is None else max_outer)
+
+
+@timing.spanned('blend')
+def reference_adjust_rows(T, pi, w, thresh, max_groups=None, max_outer=None):
+    """Faithful group-blend adjustment of [C, n] columns (p descending) on a
+    shared grid (pi, w [n]) with per-column thresholds ``thresh`` [C]; at
+    most ``max_groups`` groups a sweep (default n // 2 + 1) and
+    ``max_outer`` sweeps (default 4 n) a column.
+
+    CPU tensors take the lock-step loop (:func:`_lockstep_blend`, a host
+    sync a sweep); every other device the ``group_blend`` kernel (one
+    launch, counted by ``blend.launches``; it raises where it cannot
+    launch)."""
+    max_groups, max_outer = _blend_limits(T.shape[1], max_groups, max_outer)
+    if T.device.type == 'cpu':
+        return _lockstep_blend(T, pi, w, thresh, max_groups, max_outer,
+                               _torch_row_sums)
+    from .cuda_convection import group_blend
+    return group_blend(T, pi, w, thresh, max_groups, max_outer)
+
+
+def group_blend_plain(T, pi, w, thresh, max_groups=None, max_outer=None):
+    """Plain PyTorch version of the ``group_blend`` kernel (K8) on any
+    device: the lock-step loop with the kernel's enthalpy sums
+    (:func:`warp_row_sums`).  Every other operation rounds alike in both,
+    so on the CPU it gives the kernel's result bit for bit."""
+    max_groups, max_outer = _blend_limits(T.shape[1], max_groups, max_outer)
+    return _lockstep_blend(T, pi, w, thresh, max_groups, max_outer,
+                           warp_row_sums)
 
 
 # --------------------------------------------------------------------------

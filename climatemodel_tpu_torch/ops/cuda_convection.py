@@ -10,6 +10,13 @@
   dividing as the port's kernels do: ``div_rn_in_range`` where a warp's
   vote allows it, ``/`` otherwise (``convection.div_probe_warp_paths``
   counts the warps of each form).
+* :func:`group_blend` replaces no Pallas kernel (K8): the JAX package
+  retired its group-blend kernel in r05 after it miscompiled on the chip
+  (``climatemodel_tpu/ops/convection.py:211-217``) and runs the blend as
+  vmapped while loops.  On the card the plain lock-step loop paid ~35
+  launches a group and a host sync a sweep; the kernel runs the whole
+  blend of every column in one launch, a warp a column.  Launches bound
+  it, not bytes.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on the current stream, raises if the
@@ -31,9 +38,10 @@ import torch
 
 from . import _cuda_build
 from .cuda_two_stream import _check, _raise_on, _refuse_grad
+from ..utils import timing
 
 #: launches of each kernel since the last :func:`reset_launch_counts`
-launch_counts = {'iso_fit': 0, 'div_probe': 0}
+launch_counts = {'iso_fit': 0, 'div_probe': 0, 'group_blend': 0}
 #: launches of each (kernel, device) pair since the last reset, e.g.
 #: ``('net_stats_walk', 'cuda:1')``
 device_launch_counts = collections.Counter()
@@ -58,6 +66,13 @@ def library() -> ctypes.CDLL:
         fn.restype = _I
     lib.div_probe_f32.argtypes = [_P] * 5 + [_I, _P]
     lib.div_probe_f32.restype = _I
+    for s in _SUFFIX.values():
+        fn = getattr(lib, f'group_blend_{s}')
+        fn.argtypes = [_P] * 6 + [_I] * 5 + [_P]
+        fn.restype = _I
+        fn = getattr(lib, f'group_blend_scratch_{s}')
+        fn.argtypes = [_I, _I, _I]
+        fn.restype = ctypes.c_longlong
     lib.iso_fit_max_levels.argtypes = []
     lib.iso_fit_max_levels.restype = _I
     return lib
@@ -125,3 +140,56 @@ def div_probe(a, b):
     launch_counts['div_probe'] += 1
     device_launch_counts[('div_probe', str(a.device))] += 1
     return outs
+
+
+#: shared memory a ``group_blend`` block may take; a column that does not
+#: fit works from a scratch row in device memory instead
+_BLEND_SMEM_BYTES = 48 * 1024
+
+
+def group_blend(T, pi, w, thresh, max_groups, max_outer):
+    """K8: the group blend (``convection.reference_adjust_rows``) of every
+    row, one launch and no host sync.
+
+    :param T: [C, n] columns (p descending, a column's levels contiguous),
+        f32 or f64; any n.
+    :param pi, w: [n] the shared Exner factors and enthalpy weights.
+    :param thresh: [C] the largest adjustment a group may make (cast to
+        T's dtype, as the plain loop does).
+    :param max_groups, max_outer: groups a sweep and sweeps a column.
+    :return: [C, n], as ``convection.group_blend_plain`` gives it on the
+        CPU, bit for bit.
+    """
+    _refuse_grad('group_blend', 'convection.group_blend_plain', T, pi, w,
+                 thresh)
+    if T.dtype not in _SUFFIX:
+        raise ValueError(f'group_blend: unsupported dtype {T.dtype}')
+    if T.ndim != 2:
+        raise ValueError(f'group_blend: T must be [C, n], got '
+                         f'{tuple(T.shape)}')
+    C, n = T.shape
+    _check('T', T, (C, n), T)
+    _check('pi', pi, (n,), T)
+    _check('w', w, (n,), T)
+    thresh = thresh.to(T.dtype).contiguous()
+    _check('thresh', thresh, (C,), T)
+    out = torch.empty_like(T)
+    if C == 0 or n == 0:
+        return out
+    lib = library()
+    suffix = _SUFFIX[T.dtype]
+    words = int(getattr(lib, f'group_blend_scratch_{suffix}')(
+        n, C, _BLEND_SMEM_BYTES))
+    scratch = (torch.empty((words,), dtype=torch.int32, device=T.device)
+               if words else None)
+    with torch.cuda.device(T.device):
+        stream = torch.cuda.current_stream(T.device).cuda_stream
+        err = getattr(lib, f'group_blend_{suffix}')(
+            T.data_ptr(), pi.data_ptr(), w.data_ptr(), thresh.data_ptr(),
+            out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            n, C, max_groups, max_outer, _BLEND_SMEM_BYTES, stream)
+    _raise_on(err, 'group_blend')
+    launch_counts['group_blend'] += 1
+    device_launch_counts[('group_blend', str(T.device))] += 1
+    timing.count('blend.launches')
+    return out

@@ -222,6 +222,103 @@ def test_batched_reference_matches_vmapped_jax():
     np.testing.assert_allclose(out_p, out_j, atol=1e-8)
 
 
+def _blend_alone(T, pi, w, thresh, max_groups, max_outer):
+    """The group blend of one column [1, n] as the ``group_blend`` kernel's
+    warp runs it, each column on its own: (result, how it ended, levels
+    ignored).  It ends 'stable' (no unstable level that is not ignored),
+    'no_progress' (a sweep left T and the unstable levels as they were) or
+    'max_outer'."""
+    n = T.shape[1]
+    idx = torch.arange(n)
+    ignored = torch.zeros_like(T, dtype=torch.bool)
+    un = pc._unstable_mask(T, pi, ignored)
+    progressed = True
+    for _ in range(max_outer):
+        if not bool(un.any()):
+            return T, 'stable', int(ignored.sum())
+        if not progressed:
+            return T, 'no_progress', int(ignored.sum())
+        starts = un & ~torch.cat([torch.zeros_like(un[:, :1]), un[:, :-1]], 1)
+        gid = torch.where(un, torch.cumsum(starts, dim=1), 0)
+        T_prev = T
+        for gi in range(1, min(int(gid.max()), max_groups) + 1):
+            T, ignored = pc._group_step(T, ignored, gid, gi, pi, w,
+                                        thresh.to(T.dtype), idx,
+                                        torch.ones(1, dtype=torch.bool),
+                                        pc._torch_row_sums)
+        un_new = pc._unstable_mask(T, pi, ignored)
+        progressed = bool((T != T_prev).any() | (un_new != un).any())
+        un = un_new
+    return T, 'max_outer', int(ignored.sum())
+
+
+@pytest.mark.parametrize('dtype', ['f64', 'f32'])
+@pytest.mark.parametrize('nz', [40, 150])
+def test_blend_batch_equals_each_column_alone(nz, dtype):
+    """The premise of the ``group_blend`` kernel (K8): the lock-step loop
+    over a batch gives each column, bit for bit, what that column's own
+    loop gives, so a warp may run each column to its own end.  24 noisy
+    columns (0 to 12 K), a 4 K threshold on every third (groups skipped),
+    at the default limits, with max_outer 3 (columns cut by the cap) and
+    with max_groups 0 (a sweep that runs no group makes no progress)."""
+    _, td = DTYPES[dtype]
+    rng = np.random.default_rng(21)
+    p = _descending_p(nz)
+    amp = np.linspace(0.0, 12.0, 24)[:, None]
+    T = 320 - 60 * np.linspace(0, 1, nz)[None] + amp * rng.standard_normal(
+        (24, nz))
+    T[:, -1] = T[:, -2] + 30
+    pi, w = (torch.tensor(x, dtype=td) for x in _jax_grid(jnp.asarray(p)))
+    T = torch.tensor(T, dtype=td)
+    thresh = torch.tensor(np.where(np.arange(24) % 3 == 0, 4.0, 1e9),
+                          dtype=td)
+    endings, ignored = set(), 0
+    for max_groups, max_outer in ((None, None), (None, 3), (0, None)):
+        batch = pc.reference_adjust_rows(T, pi, w, thresh, max_groups,
+                                         max_outer)
+        mg, mo = pc._blend_limits(nz, max_groups, max_outer)
+        alone = [_blend_alone(T[i:i + 1], pi, w, thresh[i:i + 1], mg, mo)
+                 for i in range(24)]
+        assert torch.equal(batch, torch.cat([a[0] for a in alone]))
+        endings |= {a[1] for a in alone}
+        ignored += sum(a[2] for a in alone)
+    assert endings == {'stable', 'no_progress', 'max_outer'}
+    assert ignored > 0
+
+
+def _lanes_then_butterfly(x):
+    """``warp_row_sums``' order written out per lane in numpy, one add at a
+    time: every lane's sum (they must all agree)."""
+    C, n = x.shape
+    sums = np.zeros((C, pc.WARP), x.dtype)
+    for lane in range(pc.WARP):
+        for i in range(lane, n, pc.WARP):
+            sums[:, lane] = sums[:, lane] + x[:, i]
+    for off in (16, 8, 4, 2, 1):
+        sums = np.stack([sums[:, lane] + sums[:, lane ^ off]
+                         for lane in range(pc.WARP)], axis=1)
+    return sums
+
+
+@pytest.mark.parametrize('dtype', ['f64', 'f32'])
+@pytest.mark.parametrize('n', [1, 31, 32, 149, 598])
+def test_warp_row_sums_add_in_the_kernels_order(n, dtype):
+    """``warp_row_sums`` (the ``group_blend`` kernel's enthalpy sums): lane
+    l adds levels l, l + 32, ... in turn, then the butterfly; every lane
+    ends with the same sum, and the order differs from ``torch.sum``'s
+    (in f32 some rows round otherwise)."""
+    _, td = DTYPES[dtype]
+    rng = np.random.default_rng(n)
+    x = (rng.uniform(100.0, 300.0, (64, n))
+         * rng.uniform(1.0, 1e3, (1, n))).astype(np.dtype(str(td)[6:]))
+    lanes = _lanes_then_butterfly(x)
+    assert (lanes == lanes[:, :1]).all()
+    got = pc.warp_row_sums(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, lanes[:, 0])
+    if dtype == 'f32' and n > 32:
+        assert (got != torch.from_numpy(x).sum(dim=1).numpy()).any()
+
+
 # --------------------------------------------------------------------------
 # iso_fit (K4) and its plain version
 # --------------------------------------------------------------------------
@@ -626,3 +723,5 @@ def test_cuda_convection_never_falls_back():
     with pytest.raises(ValueError, match='CUDA tensor'):
         pc.div_probe(torch.empty((4,), device='meta'),
                      torch.empty((4,), device='meta'))
+    with pytest.raises(ValueError, match='CUDA tensor'):
+        pc.reference_adjust_rows(T, v, v, torch.empty((3,), device='meta'))

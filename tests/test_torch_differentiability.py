@@ -152,13 +152,15 @@ def _kernel_calls():
          (z(2, 4), torch.ones(4))),
         ('div_probe', 'div_probe_plain', cuda_convection.div_probe,
          (z(4), torch.ones(4))),
+        ('group_blend', 'group_blend_plain', cuda_convection.group_blend,
+         (z(2, 4), torch.ones(4), torch.ones(4), torch.ones(2), 3, 16)),
         ('richtmyer_step', "solver='richtmyer'", cuda_stencils.richtmyer_step,
          (z(5, 5), z(5, 5), z(5, 5), z(3, 3), z(3, 3), None, None, one,
           torch.ones((), dtype=torch.bool), one, one, one)),
     ]
 
 
-@pytest.mark.parametrize('case', range(5))
+@pytest.mark.parametrize('case', range(6))
 def test_cuda_wrappers_refuse_inputs_that_require_grad(case):
     """Under grad mode an input that requires grad raises RuntimeError
     naming the differentiable plain route, before anything else is checked;
