@@ -8,12 +8,15 @@ rank.
 Every rank builds the whole sweep's inputs from the seed; the program cuts
 them into a block of ``members`` a rank.  After each march the ranks agree,
 through one broadcast of rank 0's decision, on what follows: the next
-march, traced or not, or the window's end.
+march, traced or not, or the window's end.  Rank 0's records, trace and
+span log (``utils/timing``) stand for the run's, with every rank's
+iterations, traces and peaks beside them.
 """
 from __future__ import annotations
 
 import contextlib
 import time
+import types
 
 import torch
 
@@ -98,7 +101,14 @@ def rank_window(mesh, cfg, traffic, seed, seconds, trace):
         kind = NEXT[int(code.item())]
     window_wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+    spans = None
+    if mesh.rank == 0:
+        from climatemodel_tpu_torch.utils import timing
+        if hasattr(timing, 'spans'):
+            # as dicts: the rank's result travels as plain data
+            spans = [s._asdict() for s in timing.spans()]
     return dict(rank=mesh.rank, marches=marches, peak_bytes=peak,
+                spans=spans,
                 window_wall=window_wall, start_epoch=start_epoch,
                 trace=traces[0] if traces else None,
                 host_trace=host_traces[0] if host_traces else None,
@@ -122,5 +132,7 @@ def window(c, seed, seconds, trace, device, start_epoch):
         peak_bytes=max(r['peak_bytes'] for r in recs),
         traces=[r['trace'] for r in recs if r['trace'] is not None],
         host_trace=head['host_trace'],
+        spans=(None if head['spans'] is None else
+               [types.SimpleNamespace(**s) for s in head['spans']]),
         rank_marches=[r['marches'] for r in recs],
         forbidden=sorted({m for r in recs for m in r['forbidden']}))

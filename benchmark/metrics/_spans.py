@@ -13,7 +13,9 @@ its descendants.  Its per-iteration metrics divide by the iterations
 ``iteration_ms`` divides by (``info.steps.max()``, ``traced_iterations``),
 so that they are parts of it; the counter ``march.iterations`` holds also
 the no-op iterations up to the closing stop check.  A program that
-records no spans gives None.
+records no spans gives None.  A driver whose marches run in other
+processes (``grey_ranks``) hands rank 0's span log back as
+``run['spans']``, which is read instead of this process's.
 """
 from __future__ import annotations
 
@@ -34,6 +36,12 @@ def log():
     return read() if read is not None else None
 
 
+def spans_of(run):
+    """The span log of the process that made the run's marches, or None."""
+    spans = run.get('spans')
+    return spans if spans is not None else log()
+
+
 def _tops(run, name, spans):
     tops = [s for s in spans if s.name == name and s.parent is None]
     n = len(run['marches'])
@@ -43,7 +51,7 @@ def _tops(run, name, spans):
 def untraced_tops(run, name):
     """The top-level ``name`` spans ('march' or 'finish') of
     ``_common.untraced``'s marches, or None."""
-    spans = log()
+    spans = spans_of(run)
     tops = _tops(run, name, spans) if spans is not None else None
     if tops is None:
         return None
@@ -54,7 +62,7 @@ def untraced_tops(run, name):
 def traced_march(run):
     """(the top-level ``march`` span traced for the card, its descendants
     in the order they began), or None."""
-    tr, spans = trace0(run), log()
+    tr, spans = trace0(run), spans_of(run)
     if tr is None or not tr.kernels or spans is None:
         return None
     lo = tr.kernels[0][0]

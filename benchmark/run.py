@@ -13,7 +13,8 @@ of standard output is one JSON object (``correct``, ``attempted``,
 the numbers compared, each beside its limit, close standard error.
 
 Everything is found by name from ``BENCHMARK.json``: the cell's entry
-names its configuration (``benchmark/configs/<config>.json``) and traffic
+names its configuration (``benchmark/configs/<config>.json``, which names
+its comparison, ``benchmark/reference/<compare>.py``) and traffic
 (``benchmark/traffic/<traffic>.json``, which names its driver in
 ``benchmark/drivers/``); ``benchmark/cells/<cell>.json`` holds the cell's
 limits; each metric is read by ``benchmark/metrics/<metric>.py``.
@@ -54,7 +55,8 @@ from core import guard  # noqa: E402
 def load_cell(name, root=ROOT, entry=None):
     """The cell's entry, configuration, traffic, limits and metrics.
     ``entry``: the cell's entry where ``BENCHMARK.json`` has none (a cell
-    whose files wait for a later manifest)."""
+    whose files wait for a later manifest).  A configuration file names
+    its comparison (``compare``)."""
     bench = json.loads((root / 'BENCHMARK.json').read_text())
     cells = {w['name']: w for w in bench['workloads']}
     if entry is not None:
@@ -63,14 +65,19 @@ def load_cell(name, root=ROOT, entry=None):
         raise SystemExit(f'unknown workload {name!r}; choose from '
                          f'{sorted(cells)}')
     cell = cells[name]
-    cfg_entry = {c['name']: c for c in bench['configs']}[cell['config']]
+    cfg_file = {c['name']: c
+                for c in bench['configs']}[cell['config']]['file']
+    config = json.loads((root / cfg_file).read_text())
+    if 'compare' not in config:
+        raise SystemExit(f'{cfg_file}: no "compare" key naming the '
+                         f'comparison (benchmark/reference/<compare>.py)')
     here = root / 'benchmark'
 
     def wanted(m):
         return name in m.get('workloads', [name])
     return dict(
         cell=cell,
-        config=json.loads((root / cfg_entry['file']).read_text()),
+        config=config,
         traffic=json.loads((here / 'traffic' /
                             f"{cell['traffic']}.json").read_text()),
         spec=json.loads((here / 'cells' / f'{name}.json').read_text()),
@@ -82,24 +89,26 @@ def metric_reader(name):
     return importlib.import_module(f'metrics.{name}').read
 
 
+def comparison(c):
+    """The configuration's comparison: ``numbers``, ``control``,
+    ``FAILED``, ``REQUIRED`` (see ``benchmark/reference/columns.py``)."""
+    return importlib.import_module(f"reference.{c['config']['compare']}")
+
+
+def judge(c, nums):
+    """(correct, lines): each compared number beside the cell's limit."""
+    from reference.compare import judge as beside_limits
+    return beside_limits(nums, c['spec']['limits'])
+
+
 def measure(c, seed, seconds, trace, device):
     """Set-up, the window and the comparison of one run on ``device``.
     Returns the run's record (see ``benchmark/metrics/``)."""
-    import numpy as np
-
-    from reference import compare, world as ref_world
-
     driver = importlib.import_module(f"drivers.{c['traffic']['driver']}")
     run = driver.window(c, seed, seconds, trace, device, T_START_EPOCH)
-    marches = run['marches']
-    sample = {k: np.concatenate([m['sample'][k] for m in marches])
-              for k in marches[0]['sample']}
-    world = ref_world.grey_world(c['config'])
-    nums = compare.numbers(sample, world, c['config'], seed=seed,
-                           device=device)
-    nums['unsettled'] = sum(m['unsettled'] for m in marches)
-    ok, lines = compare.judge(nums, c['spec']['limits'])
-    for m in marches:
+    nums = comparison(c).numbers(run, c, seed, device)
+    ok, lines = judge(c, nums)
+    for m in run['marches']:
         m.pop('sample', None)
     run.update(correct=ok, compared=nums, lines=lines, config=c['config'],
                traffic=c['traffic'], device=device)
@@ -119,7 +128,7 @@ def result(c, run, trace):
     out = dict(
         correct=run['correct'],
         attempted=sum(m['members'] for m in run['marches']),
-        failed=run['compared']['unsettled'], metrics=metrics,
+        failed=run['compared'][comparison(c).FAILED], metrics=metrics,
         device=dict(platform='gpu' if dev.type == 'cuda' else dev.type,
                     kind=(torch.cuda.get_device_name(dev)
                           if dev.type == 'cuda' else 'cpu'),

@@ -42,3 +42,40 @@ def loads_jax(mesh, *args):
     sys.modules['jax'] = types.ModuleType('jax')
     from drivers.grey_ranks import rank_window
     return rank_window(mesh, *args)
+
+
+def _wrap_march(change):
+    """Every rank's gathered march result passed through ``change(states,
+    fs)`` where it is produced."""
+    from climatemodel_tpu_torch.parallel import ensemble
+    real = ensemble.grey_evolve_ensemble_sharded
+
+    def march(mesh, states, *a, **k):
+        fs, info = real(mesh, states, *a, **k)
+        return change(states, fs), info
+    ensemble.grey_evolve_ensemble_sharded = march
+
+
+def half_left_out(mesh, *args):
+    """The second half of the sweep returned as it came, flagged as the
+    marched members."""
+    def change(states, fs):
+        h = states.T.shape[0] // 2
+        T, net = fs.T.clone(), fs.net_flux.clone()
+        T[h:] = states.T[h:].to(T.device)
+        net[h:] = states.net_flux[h:].to(net.device)
+        return fs.replace(T=T, net_flux=net)
+    _wrap_march(change)
+    from drivers.grey_ranks import rank_window
+    return rank_window(mesh, *args)
+
+
+def answer_altered(mesh, *args):
+    """One member's answer altered where it is produced."""
+    def change(states, fs):
+        T = fs.T.clone()
+        T[0] *= 1.02
+        return fs.replace(T=T)
+    _wrap_march(change)
+    from drivers.grey_ranks import rank_window
+    return rank_window(mesh, *args)

@@ -1,24 +1,22 @@
-"""The control: the plain reference march in bfloat16, put in the program's
-place, must come out as not correct; on the card at the cell's own size
-too (``card`` marker;
+"""The control: the plain reference in bfloat16, put in the program's
+place by the configuration's comparison, must come out as not correct; on
+the card at the cell's own size too (``card`` marker;
 ``python -m pytest benchmark/tests -m card`` on the card machine)."""
 import pytest
 import torch
 
-import control
 import run
-from reference import compare
 
-CELLS = ['grey_rce.sweep512k', 'rce_conv.reference32k']
+CELLS = ['grey_rce.sweep512k', 'rce_conv.reference32k', 'grey_rce.dp4x512k']
 
 
 @pytest.mark.parametrize('cell', CELLS)
 def test_control_is_not_correct(cell):
     c = run.load_cell(cell)
     c['traffic']['members'] = 8
-    nums, _ = control.control(c, 2 ** 31 + 5, 'bfloat16',
-                              torch.device('cpu'))
-    ok, lines = compare.judge(nums, c['spec']['limits'])
+    nums = run.comparison(c).control(c, 2 ** 31 + 5, 'bfloat16',
+                                     torch.device('cpu'))
+    ok, lines = run.judge(c, nums)
     assert not ok, lines
 
 
@@ -26,6 +24,6 @@ def test_control_is_not_correct(cell):
 @pytest.mark.parametrize('cell', CELLS)
 def test_control_is_not_correct_on_the_card(cell, card):
     c = run.load_cell(cell)
-    nums, _ = control.control(c, 2 ** 31 + 11, 'bfloat16', card)
-    ok, lines = compare.judge(nums, c['spec']['limits'])
+    nums = run.comparison(c).control(c, 2 ** 31 + 11, 'bfloat16', card)
+    ok, lines = run.judge(c, nums)
     assert not ok, lines

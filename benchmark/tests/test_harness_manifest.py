@@ -60,11 +60,17 @@ def test_each_cell_finds_its_files_by_name():
         importlib.import_module(f"drivers.{c['traffic']['driver']}")
         for m in c['end_to_end'] + c['per_layer']:
             assert callable(run.metric_reader(m['name']))
-        assert set(c['spec']['limits']) >= {'unsettled', 'flux_p95_gap_wm2'}
+        comparison = run.comparison(c)
+        assert set(c['spec']['limits']) >= set(comparison.REQUIRED)
         assert c['spec']['who'] and c['spec']['why'] == w['why']
     for cfg in BENCH['configs']:
         assert (ROOT / cfg['file']).is_file()
         assert cfg['file'].startswith('benchmark/')
+        name = json.loads((ROOT / cfg['file']).read_text())['compare']
+        comparison = importlib.import_module(f'reference.{name}')
+        assert callable(comparison.numbers)
+        assert callable(comparison.control)
+        assert comparison.FAILED in comparison.REQUIRED
 
 
 def test_every_cell_reports_setup_an_end_to_end_and_a_layer_metric():
